@@ -54,8 +54,10 @@ class Kernel:
         return CSRC / f"{self.name}.cu"
 
     def library_path(self) -> Path:
+        """Named by a hash of the source and every header under ``CSRC``,
+        so a changed header rebuilds every library."""
         h = hashlib.sha256()
-        for f in (self.source, CSRC / "common.cuh"):
+        for f in (self.source, *sorted(CSRC.glob("*.cuh"))):
             h.update(f.read_bytes())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
 
@@ -122,8 +124,11 @@ FP8_QUANT = Kernel("fp8_quant", {
 FP8_MATMUL = Kernel("fp8_matmul", {
     # x, w, scales, y, scratch, M, K, N, bs, splits, kb_per_split, stream
     "matmul_fp8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)})
+FP8_MATMUL_WGMMA = Kernel("fp8_matmul_wgmma", {
+    # x, w, scales, y, M, K, N, stream
+    "matmul_fp8_wgmma": (_P, _P, _P, _P, _I, _I, _I, _P)})
 
-KERNELS = (SCALE_SEARCH, FP8_QUANT, FP8_MATMUL)
+KERNELS = (SCALE_SEARCH, FP8_QUANT, FP8_MATMUL, FP8_MATMUL_WGMMA)
 
 
 def build_all() -> None:
