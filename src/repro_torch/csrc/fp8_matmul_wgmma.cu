@@ -13,18 +13,23 @@
 // tensor cores.  Every E4M3 value is exactly a bf16 and x already is one,
 // so each fp8 weight tile is converted to bf16 in shared memory and fed to
 // bf16 wgmma (m64n128k16, fp32 accumulate); fp8 wgmma would need x cast to
-// fp8, another result.  A thread block owns 64 rows x 128 columns, so one
+// fp8, another result.  A thread block owns 128 rows x 128 columns, so one
 // block scale per 128-row K slab: the slab's product goes to its own
 // accumulator and is added as acc += part * scale[kb, nb] in fp32, the
 // arithmetic of _matmul_kernel up to summation order.
 //
-// Layout: the x tile is bf16 [64 rows][64 k], K-major, 128-byte swizzled;
-// the fp8 w tile [64 k][128 n] (N-contiguous) is staged plainly, then
-// converted and written transposed as K-major bf16 [128 n][64 k] with the
-// same swizzle, so A and B share one descriptor scheme and no transpose bit.
+// Layout: the x tile is bf16 [128 rows][64 k], K-major, 128-byte swizzled
+// by TMA; the fp8 w tile [64 k][128 n] (N-contiguous) arrives plainly by
+// TMA, and the consumers convert it and write it transposed as K-major bf16
+// [128 n][64 k] with the same swizzle, so A and B share one descriptor
+// scheme and no transpose bit.
 //
-// This is the first, simple version: one warpgroup, one stage, plain 16-byte
-// loads, each K tile loaded, converted and multiplied in turn.
+// Pipeline: a ring of kStages tiles in shared memory with full / empty
+// mbarriers.  One producer lane issues the TMA loads; two consumer
+// warpgroups (64 rows each) convert half the w tile each, then run wgmma
+// on it.  The conversion of tile t + 1 overlaps the wgmma of tile t; a
+// slab's partial sum is folded in once its second tile's wgmma is done.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 
@@ -33,10 +38,8 @@
 namespace {
 
 constexpr int kBlock = 128;      // quant block edge: one scale per slab
-constexpr int kBM = 64;          // rows of x per thread block (one warpgroup)
 constexpr int kBN = 128;         // output columns per thread block
 constexpr int kBK = 64;          // K depth of one tile: 128 bytes of bf16
-constexpr int kThreads = 128;
 constexpr int kRowBytes = kBK * 2;  // one swizzled K-major row
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -166,73 +169,198 @@ __device__ __forceinline__ void store_tile(const float (&acc)[64], float* y, int
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-matmul_wgmma_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
-                    const float* __restrict__ scales, float* __restrict__ y, int M, int K,
-                    int N) {
-  __shared__ __align__(1024) uint8_t sa[kBM * kRowBytes];   // x tile, swizzled
-  __shared__ __align__(1024) uint8_t sb[kBN * kRowBytes];   // bf16 w tile, swizzled
-  __shared__ __align__(16) uint8_t stage[kBK * kBN];        // fp8 w tile, plain
+constexpr int kStages = 4;              // ring depth
+constexpr int kRBM = 128;                // rows per thread block: two consumer warpgroups
+constexpr int kConsumers = 256;          // threads 0..255; warp 8 is the producer
+constexpr int kRThreads = kConsumers + 32;
+constexpr int kXBytes = kRBM * kRowBytes;      // 16 KB x tile (TMA, swizzled)
+constexpr int kBBytes = kBN * kRowBytes;       // 16 KB bf16 w tile (converted)
+constexpr int kWBytes = kBK * kBN;             // 8 KB fp8 w tile (TMA, plain)
+constexpr int kStageBytes = kXBytes + kBBytes + kWBytes;
+constexpr int kSmemBytes = kStages * kStageBytes + 1024;  // + alignment slack
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// Wait for the phase of `bar` with this parity to complete.  A wait of
+// 2^34 cycles (seconds) can only be a deadlock: trap, so the launch fails
+// instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 34)) __trap();
+}
+// 2-D TMA load of the box at (c0 inner, c1 outer) into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// Barrier 1 over the two consumer warpgroups (barrier 0 is __syncthreads).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+}
+
+__global__ void __launch_bounds__(kRThreads, 1)
+matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
+                    const __grid_constant__ CUtensorMap tmap_w, const float* __restrict__ scales,
+                    float* __restrict__ y, int M, int K, int N) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t full[kStages], empty[kStages];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
-  const int m0 = blockIdx.x * kBM, nb = blockIdx.y, n0 = nb * kBN;
+  const int m0 = blockIdx.x * kRBM, nb = blockIdx.y, n0 = nb * kBN;
   const int nsb = N / kBlock, ntiles = K / kBK;
 
-  float acc[64], part[64];
+  if (t == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // producer: one lane keeps the ring full
+    if (lane == 0) {
+      for (int kt = 0; kt < ntiles; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) mbar_wait(&empty[s], ((kt / kStages) - 1) & 1);
+        uint8_t* st = smem + s * kStageBytes;
+        mbar_expect_tx(&full[s], kXBytes + kWBytes);
+        tma_load(st, &tmap_x, &full[s], kt * kBK, m0);
+        tma_load(st + kXBytes + kBBytes, &tmap_w, &full[s], n0, kt * kBK);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg multiplies rows m0 + 64 wg .. + 63
+  const int wg = warp >> 2;
+  float acc[64], part[64], sc = 0.f;
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
 
   for (int kt = 0; kt < ntiles; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's wgmma and conversion are done
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int e = t + i * kThreads, r = e >> 3, c = e & 7;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (m0 + r < M)
-        v = *reinterpret_cast<const uint4*>(x + static_cast<size_t>(m0 + r) * K + k0 + c * 8);
-      *reinterpret_cast<uint4*>(sa + sw128(r, c)) = v;
-      *reinterpret_cast<uint4*>(stage + r * kBN + c * 16) = *reinterpret_cast<const uint4*>(
-          w + static_cast<size_t>(k0 + r) * N + n0 + c * 16);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int it = 0; it < 2; ++it)
-      convert_block(stage, sb, lane, (warp + 4 * it) ^ ((lane >> 1) & 3));
-    fence_proxy_async();
-    __syncthreads();
-
+    const int s = kt % kStages;
+    uint8_t* st = smem + s * kStageBytes;
     const bool first = (kt & 1) == 0;  // first of the slab's two tiles
+    const float sc_next = first ? __ldg(scales + static_cast<size_t>(kt >> 1) * nsb + nb) : 0.f;
+    mbar_wait(&full[s], (kt / kStages) & 1);
+    // both warpgroups convert half the fp8 tile each, while the previous
+    // tile's wgmma runs
+    convert_block(st + kXBytes + kBBytes, st + kXBytes, lane, warp ^ ((lane >> 1) & 3));
+    fence_proxy_async();
+    consumers_sync();
+
+    if (first && kt > 0) {             // fold the finished slab: acc += part * scale
+      wgmma_wait<0>();
+      fence_operands(part);
+      if (lane == 0) mbar_arrive(&empty[(kt - 1) % kStages]);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = fmaf(part[i], sc, acc[i]);
+    }
+    if (first) sc = sc_next;
     wgmma_fence();
-    fence_operands(part);
+    const uint32_t a = smem_u32(st) + wg * (kXBytes / 2), b = smem_u32(st + kXBytes);
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_m64n128k16(part, sw128_desc(smem_u32(sa) + kk * 32),
-                       sw128_desc(smem_u32(sb) + kk * 32), !first || kk > 0);
+      wgmma_m64n128k16(part, sw128_desc(a + kk * 32), sw128_desc(b + kk * 32),
+                       !first || kk > 0);
     wgmma_commit();
-    wgmma_wait<0>();
-    fence_operands(part);
-    if (!first) {
-      const float s = scales[static_cast<size_t>(kt >> 1) * nsb + nb];
-#pragma unroll
-      for (int i = 0; i < 64; ++i) acc[i] = fmaf(part[i], s, acc[i]);
+    if (!first) {  // the slab's first tile is done: release its stage
+      wgmma_wait<1>();
+      if (lane == 0) mbar_arrive(&empty[(kt - 1) % kStages]);
     }
   }
-  store_tile(acc, y, m0, n0, M, N, warp, lane);
+  wgmma_wait<0>();
+  fence_operands(part);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = fmaf(part[i], sc, acc[i]);
+  store_tile(acc, y, m0 + wg * 64, n0, M, N, warp & 3, lane);
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver, fetched through the runtime so
+// the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
+            cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D row-major tensor map: rows x cols elements of `bytes` each, boxes of
+// box_rows x box_cols.
+bool encode(CUtensorMap* map, CUtensorMapDataType type, int bytes, const void* base,
+            uint64_t rows, uint64_t cols, uint32_t box_rows, uint32_t box_cols,
+            CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {cols, rows};
+  const cuuint64_t strides[1] = {cols * bytes};
+  const cuuint32_t box[2] = {box_cols, box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace
 
 // x: bf16 [M, K], 16-byte aligned; w: E4M3 codes [K, N], 16-byte aligned;
 // scales: fp32 [K/128, N/128]; y: fp32 [M, N].  K and N are multiples of
-// 128 (the quant block).
+// 128 (the quant block).  The tensor maps are encoded per call (rows of x
+// beyond M read as zeros).
 extern "C" int matmul_fp8_wgmma(const void* x, const void* w, const float* scales, float* y,
                                 int M, int K, int N, void* stream) {
   if (M == 0 || N == 0) return 0;
   if (K % kBlock || N % kBlock || N / kBN > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((M + kBM - 1) / kBM, N / kBN);
-  matmul_wgmma_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const uint8_t*>(w), scales, y, M, K,
-      N);
+  CUtensorMap tmap_x, tmap_w;
+  if (!encode(&tmap_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, kRBM, kBK,
+              CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !encode(&tmap_w, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, w, K, N, kBK, kBN,
+              CU_TENSOR_MAP_SWIZZLE_NONE))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(matmul_wgmma_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((M + kRBM - 1) / kRBM, N / kBN);
+  matmul_wgmma_kernel<<<grid, kRThreads, kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      tmap_x, tmap_w, scales, y, M, K, N);
   return static_cast<int>(cudaGetLastError());
 }
