@@ -6,21 +6,26 @@
 
 Phases:
   1. environment (torch / CUDA versions, card name and power limit);
-  2. build the three CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+  2. build the four CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
      each, all at once);
   3. check each kernel against its plain PyTorch version at the shapes of
-     the main path, with the tolerance stated below, and time both;
+     the main path, with the tolerance stated below, and time both; the fp8
+     matmul has two routes (CUDA cores for decode, wgmma tensor cores for
+     prefill), each checked, and both timed across M to find where the
+     tensor-core route starts to win;
   4. make full-width GLM-4-9B weights from a seeded ``torch.Generator``
      (base = post + Gaussian noise at 1 % of each matrix's std);
   5. quantize: ``quantize(post, base, QuantConfig(use_fused_kernel=True),
      mode="storage")``;
   6. serve 8 greedy requests (prompt 128, 64 generated tokens) through
      ``Engine(model, qparams, slots=8, k_steps=8)``;
-  7. assert that every kernel launched on that quantize -> serve run, and
-     check the outputs: token ranges, report sanity, and a small model whose
-     GPU run (kernels) agrees with its CPU run (plain versions);
-  8. break one decode step down: host time, device busy time, kernel
-     launches and the kernels that take the device time.
+  7. assert that every kernel launched on that quantize -> serve run, the
+     wgmma route 7 x layers times per prefill and the CUDA-core route every
+     decode product and LM head, and check the outputs: token ranges,
+     report sanity, and a small model whose GPU run (kernels, the wgmma
+     route included) agrees with its CPU run (plain versions);
+  8. break one decode step and one prefill down: host time, device busy
+     time, kernel launches and the kernels that take the device time.
 
 It exits non-zero if any phase fails and when no CUDA device is present.
 The last line of stdout is the JSON object
@@ -75,7 +80,8 @@ def time_ms(torch, fn, reps: int) -> float:
 def check_kernels(torch, seed: int) -> dict:
     """Each kernel at main-path shapes vs its plain version.  Returns the
     per-kernel record of the representative shape (others are logged)."""
-    from repro_torch.kernels.fp8_matmul.kernel import matmul_fp8_cuda
+    from repro_torch.kernels.fp8_matmul.kernel import (TC_MIN_ROWS, matmul_fp8_cuda_core,
+                                                       matmul_fp8_wgmma)
     from repro_torch.kernels.fp8_matmul.ref import matmul_fp8_ref
     from repro_torch.kernels.fp8_quant.kernel import quantize_fp8_cuda
     from repro_torch.kernels.fp8_quant.ref import quantize_fp8_ref
@@ -152,17 +158,19 @@ def check_kernels(torch, seed: int) -> dict:
             records["fp8_quant"] = rec
         del w, qk, qp
 
-    # -- fp8_matmul: |err| <= 1e-4 * |plain| + 1e-5 * max|plain| (fp32 sums in another order)
-    for M, (K, N), main in ((8, (4096, 13696), True), (8, (4096, 4096), False),
-                            (8, (4096, 256), False), (8, (13696, 4096), False),
-                            (8, (4096, 151552), False), (SLOTS * PROMPT, (4096, 13696), False),
-                            (1, (512, 384), False), (200, (512, 384), False)):
+    # -- fp8_matmul, both routes: |err| <= 1e-4 * |plain| + 1e-5 * max|plain|
+    #    (fp32 sums in another order)
+    def matmul_operands(M, K, N):
         w, _ = weights(K, N)
         wq, sc = quantize_fp8_ref(w, torch.ones(1, device=dev), block=bs)
         x = torch.randn((M, K), generator=g, device=dev).bfloat16()
+        return x, wq, sc
+
+    def check_matmul(name, run, M, K, N):
+        x, wq, sc = matmul_operands(M, K, N)
         w_deq = (wq.float().reshape(K // bs, bs, N // bs, bs)
                  * sc[:, None, :, None]).reshape(K, N).bfloat16()
-        run_k = lambda: matmul_fp8_cuda(x, wq, sc, block=bs)
+        run_k = lambda: run(x, wq, sc, block=bs)
         run_p = lambda: matmul_fp8_ref(x, wq, sc, block=bs)
         run_l = lambda: torch.matmul(x, w_deq)
         yk, yp = run_k(), run_p()
@@ -176,13 +184,42 @@ def check_kernels(torch, seed: int) -> dict:
                            2 * M * K * N, BF16_FLOPS)
         rec = dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                    bound_by=b_by, library_ms=lib_ms)
-        log(f"kernel-check fp8_matmul M={M} [{K},{N}]: -> {'ok' if ok else 'FAIL'}; "
+        log(f"kernel-check {name} M={M} [{K},{N}]: -> {'ok' if ok else 'FAIL'}; "
             + json.dumps(rec))
         if not ok:
-            raise AssertionError(f"fp8_matmul kernel disagrees at M={M} [{K},{N}]")
+            raise AssertionError(f"{name} kernel disagrees at M={M} [{K},{N}]")
+        return rec
+
+    prefill = SLOTS * PROMPT
+    main_shapes = ((4096, 13696), (4096, 4096), (4096, 256), (13696, 4096))
+    # CUDA-core route (decode): the slots' rows at every main-path width and
+    # the LM head, the prefill width, and small ragged edges
+    for M, (K, N), main in ((SLOTS, (4096, 13696), True), (SLOTS, (4096, 4096), False),
+                            (SLOTS, (4096, 256), False), (SLOTS, (13696, 4096), False),
+                            (SLOTS, (4096, 151552), False), (prefill, (4096, 13696), False),
+                            (1, (512, 384), False), (200, (512, 384), False)):
+        rec = check_matmul("fp8_matmul", matmul_fp8_cuda_core, M, K, N)
         if main:
             records["fp8_matmul"] = rec
-        del w, wq, x, w_deq
+    # tensor-core route (prefill): the prompt rows at every main-path width,
+    # and ragged M at a small width
+    for M, (K, N) in ([(prefill, kn) for kn in main_shapes]
+                      + [(M, (512, 384)) for M in (64, 65, 200, 1000)]):
+        rec = check_matmul("fp8_matmul_wgmma", matmul_fp8_wgmma, M, K, N)
+        if M == prefill and (K, N) == (4096, 13696):
+            records["fp8_matmul_wgmma"] = rec
+    # where the tensor-core route starts to win: both routes across M
+    wins = {}
+    for K, N in main_shapes:
+        for M in (8, 16, 32, 64, 128):
+            x, wq, sc = matmul_operands(M, K, N)
+            t_cc = time_ms(torch, lambda: matmul_fp8_cuda_core(x, wq, sc, block=bs), 20)
+            t_tc = time_ms(torch, lambda: matmul_fp8_wgmma(x, wq, sc, block=bs), 20)
+            wins.setdefault(M, []).append(t_tc < t_cc)
+            log(f"crossover M={M} [{K},{N}]: cuda_core {t_cc:.4f} ms, wgmma {t_tc:.4f} ms")
+    first_win = min((M for M, w in wins.items() if all(w)), default=None)
+    log(f"crossover: smallest M of the sweep where wgmma wins at every main-path width: "
+        f"{first_win}; route() sends M >= TC_MIN_ROWS = {TC_MIN_ROWS} to wgmma")
     torch.cuda.empty_cache()
     return records
 
@@ -214,8 +251,10 @@ def make_weights(torch, model, seed: int):
 def small_model_agreement(torch, seed: int) -> None:
     """A small GLM-shaped model (128-multiple widths, so every linear takes
     the fp8 kernel) quantized and prefilled on the GPU with the kernels and
-    on the CPU with the plain versions: alphas and codes equal, logits close."""
+    on the CPU with the plain versions: alphas and codes equal, logits close.
+    The prefill's 4 x 32 = 128 rows take the tensor-core route."""
     from repro_torch.configs import QuantConfig, get_arch
+    from repro_torch.kernels._lib import FP8_MATMUL_WGMMA
     from repro_torch.models import build_model
     from repro_torch.quantize import quantize
     from repro_torch.core.policy import tree_leaves_with_path, tree_map
@@ -245,11 +284,16 @@ def small_model_agreement(torch, seed: int) -> None:
             n_codes += a.data.numel()
     tokens = torch.randint(0, cfg.vocab_size, (4, 32), generator=g)
     lc, _ = m_cpu.prefill(q_cpu, {"tokens": tokens})
+    before = FP8_MATMUL_WGMMA.launches
     lg, _ = m_gpu.prefill(q_gpu, {"tokens": tokens.cuda()})
+    n_tc = FP8_MATMUL_WGMMA.launches - before
+    if n_tc != 7 * cfg.n_layers:
+        raise AssertionError(f"small model: the wgmma route launched {n_tc} times in the "
+                             f"prefill, expected {7 * cfg.n_layers}")
     err = (lg.float().cpu() - lc.float()).abs().max().item()
     scale = lc.float().abs().max().item()
     log(f"small-model agreement: alphas equal, {n_codes} fp8 codes bit-equal, prefill "
-        f"logits max |gpu - cpu| = {err:.4g} (max |logit| {scale:.4g}, tolerance 5% of it)")
+        f"({n_tc} wgmma launches) logits max |gpu - cpu| = {err:.4g} (max |logit| {scale:.4g}, tolerance 5% of it)")
     if not err <= 0.05 * scale:
         raise AssertionError("small model: GPU and CPU prefill logits disagree")
 
@@ -311,6 +355,17 @@ def main_path(torch, args, records: dict) -> None:
         records[name]["launches"] = n
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the main path")
+    # seven quantized products per layer: prefill rows take the tensor-core
+    # route; decode rows and each LM head (last token, M = slots) the CUDA cores
+    want = {"fp8_matmul_wgmma": 7 * cfg.n_layers * stats["prefill_calls"],
+            "fp8_matmul": (7 * cfg.n_layers + 1) * stats["decode_steps"]
+            + stats["prefill_calls"]}
+    log(f"fp8 routes: {stats['prefill_calls']} prefill(s), {stats['decode_steps']} decode "
+        f"steps -> expected launches {json.dumps(want)}")
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{name} launched {launches[name]} times on the serve, "
+                                 f"expected {n}")
 
     # ---- outputs ----
     for out in outputs:
@@ -324,29 +379,21 @@ def main_path(torch, args, records: dict) -> None:
             raise AssertionError(f"DAQ sign rate below AbsMax on {name}")
     log(f"outputs: {len(outputs)} rows of {GEN} tokens in range; first row "
         f"{outputs[0][:12]}...")
-    decode_breakdown(torch, model, qparams, torch.stack(requests))
+    breakdowns(torch, model, qparams, torch.stack(requests))
 
 
-def decode_breakdown(torch, model, qparams, prompts, steps: int = 8) -> None:
-    """Where a decode step of the fp8 model goes: host time per step without
-    the profiler, then one ``torch.profiler`` window over the same steps for
-    the device's busy time, its kernel launches and the kernels by time."""
+def device_breakdown(torch, label: str, run, per: int, unit: str) -> None:
+    """Host time of ``run()`` (which ends in a synchronize) without the
+    profiler, then one ``torch.profiler`` window over another ``run()`` for
+    the device's busy time, its kernel launches and the kernels by time;
+    everything per ``unit`` (``run`` does ``per`` of them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    _, cache = model.prefill(qparams, {"tokens": prompts}, cache_len=PROMPT + 3 * steps)
-    tok = prompts[:, :1]
-
-    def run():
-        nonlocal cache
-        for _ in range(steps):
-            _, cache = model.decode_step(qparams, tok, cache)
-        torch.cuda.synchronize()
 
     run()                                   # warm-up
     t0 = time.perf_counter()
     run()
-    step_ms = (time.perf_counter() - t0) / steps * 1e3
+    host_ms = (time.perf_counter() - t0) / per * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         run()
     kernels: dict[str, list] = {}
@@ -356,16 +403,39 @@ def decode_breakdown(torch, model, qparams, prompts, steps: int = 8) -> None:
             k[0] += 1
             k[1] += e.time_range.elapsed_us() / 1e3
     if not kernels:
-        log("decode breakdown: the profiler saw no device events; device busy time "
+        log(f"{label} breakdown: the profiler saw no device events; device busy time "
             "not measured")
         return
-    busy_ms = sum(t for _, t in kernels.values()) / steps
-    n_launch = sum(n for n, _ in kernels.values()) / steps
-    log(f"decode breakdown ({steps} steps of {prompts.shape[0]} slots): {step_ms:.2f} ms per "
-        f"step on the host clock; device busy {busy_ms:.2f} ms per step (idle share "
-        f"{1 - busy_ms / step_ms:.3f}); {n_launch:.0f} kernel launches per step")
+    busy_ms = sum(t for _, t in kernels.values()) / per
+    n_launch = sum(n for n, _ in kernels.values()) / per
+    log(f"{label} breakdown: {host_ms:.2f} ms per {unit} on the host clock; device busy "
+        f"{busy_ms:.2f} ms per {unit} (idle share {1 - busy_ms / host_ms:.3f}); "
+        f"{n_launch:.0f} kernel launches per {unit}")
     for name, (n, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]:
-        log(f"  {t / steps:8.3f} ms/step  {n / steps:6.0f} launches/step  {name[:90]}")
+        log(f"  {t / per:8.3f} ms/{unit}  {n / per:6.0f} launches/{unit}  {name[:90]}")
+
+
+def breakdowns(torch, model, qparams, prompts, steps: int = 8) -> None:
+    """Where a decode step and a prefill of the fp8 model go."""
+    _, cache = model.prefill(qparams, {"tokens": prompts}, cache_len=PROMPT + 3 * steps)
+    tok = prompts[:, :1]
+
+    def decode():
+        nonlocal cache
+        for _ in range(steps):
+            _, cache = model.decode_step(qparams, tok, cache)
+        torch.cuda.synchronize()
+
+    device_breakdown(torch, f"decode ({steps} steps of {prompts.shape[0]} slots)", decode,
+                     steps, "step")
+    del cache
+
+    def prefill():
+        model.prefill(qparams, {"tokens": prompts})
+        torch.cuda.synchronize()
+
+    device_breakdown(torch, f"prefill ({prompts.shape[0]} x {prompts.shape[1]} tokens)",
+                     prefill, 1, "prefill")
 
 
 def main() -> int:
@@ -423,7 +493,9 @@ def main() -> int:
                "fp8_quant": ("src/repro_torch/csrc/fp8_quant.cu",
                              "src/repro/kernels/fp8_quant/kernel.py:36"),
                "fp8_matmul": ("src/repro_torch/csrc/fp8_matmul.cu",
-                              "src/repro/kernels/fp8_matmul/kernel.py:45")}
+                              "src/repro/kernels/fp8_matmul/kernel.py:45"),
+               "fp8_matmul_wgmma": ("src/repro_torch/csrc/fp8_matmul_wgmma.cu",
+                                    "src/repro/kernels/fp8_matmul/kernel.py:45")}
     kernels = [{"name": name, "route": "cuda", "source": sources[name][0],
                 "replaces": sources[name][1], "launches": rec["launches"],
                 **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
