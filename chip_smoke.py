@@ -191,7 +191,6 @@ def check_kernels(torch, seed: int) -> dict:
         return rec
 
     prefill = SLOTS * PROMPT
-    main_shapes = ((4096, 13696), (4096, 4096), (4096, 256), (13696, 4096))
     # CUDA-core route (decode): the slots' rows at every main-path width and
     # the LM head, the prefill width, and small ragged edges
     for M, (K, N), main in ((SLOTS, (4096, 13696), True), (SLOTS, (4096, 4096), False),
@@ -203,23 +202,32 @@ def check_kernels(torch, seed: int) -> dict:
             records["fp8_matmul"] = rec
     # tensor-core route (prefill): the prompt rows at every main-path width,
     # and ragged M at a small width
-    for M, (K, N) in ([(prefill, kn) for kn in main_shapes]
+    for M, (K, N) in ([(prefill, kn) for kn in ((4096, 13696), (4096, 4096), (4096, 256),
+                                                  (13696, 4096))]
                       + [(M, (512, 384)) for M in (64, 65, 200, 1000)]):
         rec = check_matmul("fp8_matmul_wgmma", matmul_fp8_wgmma, M, K, N)
         if M == prefill and (K, N) == (4096, 13696):
             records["fp8_matmul_wgmma"] = rec
-    # where the tensor-core route starts to win: both routes across M
-    wins = {}
-    for K, N in main_shapes:
+    # where the tensor-core route starts to win: both routes across M, per
+    # width and summed over a layer's seven products (wq, wo; wk, wv;
+    # w_gate, w_up; w_down)
+    per_layer = {(4096, 4096): 2, (4096, 256): 2, (4096, 13696): 2, (13696, 4096): 1}
+    layer = {}
+    for (K, N), count in per_layer.items():
         for M in (8, 16, 32, 64, 128):
             x, wq, sc = matmul_operands(M, K, N)
             t_cc = time_ms(torch, lambda: matmul_fp8_cuda_core(x, wq, sc, block=bs), 20)
             t_tc = time_ms(torch, lambda: matmul_fp8_wgmma(x, wq, sc, block=bs), 20)
-            wins.setdefault(M, []).append(t_tc < t_cc)
+            cc, tc = layer.get(M, (0.0, 0.0))
+            layer[M] = (cc + count * t_cc, tc + count * t_tc)
             log(f"crossover M={M} [{K},{N}]: cuda_core {t_cc:.4f} ms, wgmma {t_tc:.4f} ms")
-    first_win = min((M for M, w in wins.items() if all(w)), default=None)
-    log(f"crossover: smallest M of the sweep where wgmma wins at every main-path width: "
-        f"{first_win}; route() sends M >= TC_MIN_ROWS = {TC_MIN_ROWS} to wgmma")
+    for M, (cc, tc) in layer.items():
+        log(f"crossover M={M}, a layer's seven products: cuda_core {cc:.4f} ms, "
+            f"wgmma {tc:.4f} ms")
+    first_win = min((M for M, (cc, tc) in layer.items() if tc < cc), default=None)
+    log(f"crossover: smallest swept M at which the wgmma route takes a layer's products "
+        f"faster: {first_win}; route() sends M >= TC_MIN_ROWS = {TC_MIN_ROWS} to it "
+        f"(decode, M = {SLOTS}, stays on the CUDA cores)")
     torch.cuda.empty_cache()
     return records
 

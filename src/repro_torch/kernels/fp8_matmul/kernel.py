@@ -17,7 +17,7 @@ from repro_torch.kernels._lib import (FP8_MATMUL, FP8_MATMUL_WGMMA, ptr, require
 ROWS, COLS = 8, 128      # CUDA-core route: rows of x / output columns per thread block
 MAX_BLOCK = 256          # largest quant block edge the CUDA-core route takes
 TARGET_BLOCKS = 2 * 132  # two thread blocks per H100 SM
-TC_MIN_ROWS = 64         # fewest rows of x that take the tensor-core route
+TC_MIN_ROWS = 16         # fewest rows of x that take the tensor-core route
 TC_BLOCK = 128           # the one quant block edge the tensor-core route takes
 
 
