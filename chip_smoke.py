@@ -216,11 +216,17 @@ def check_kernels(torch, seed: int) -> dict:
     for (K, N), count in per_layer.items():
         for M in (8, 16, 32, 64, 128):
             x, wq, sc = matmul_operands(M, K, N)
+            w_deq = (wq.float().reshape(K // bs, bs, N // bs, bs)
+                     * sc[:, None, :, None]).reshape(K, N).bfloat16()
             t_cc = time_ms(torch, lambda: matmul_fp8_cuda_core(x, wq, sc, block=bs), 20)
             t_tc = time_ms(torch, lambda: matmul_fp8_wgmma(x, wq, sc, block=bs), 20)
+            t_lib = time_ms(torch, lambda: torch.matmul(x, w_deq), 20)
+            b_ms, b_by = bound(M * K * 2 + K * N + (K // bs) * (N // bs) * 4 + M * N * 4,
+                               2 * M * K * N, BF16_FLOPS)
             cc, tc = layer.get(M, (0.0, 0.0))
             layer[M] = (cc + count * t_cc, tc + count * t_tc)
-            log(f"crossover M={M} [{K},{N}]: cuda_core {t_cc:.4f} ms, wgmma {t_tc:.4f} ms")
+            log(f"crossover M={M} [{K},{N}]: cuda_core {t_cc:.4f} ms, wgmma {t_tc:.4f} ms, "
+                f"cuBLAS bf16 {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
     for M, (cc, tc) in layer.items():
         log(f"crossover M={M}, a layer's seven products: cuda_core {cc:.4f} ms, "
             f"wgmma {tc:.4f} ms")

@@ -297,8 +297,8 @@ typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, v
                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
 
-// cuTensorMapEncodeTiled from the driver, fetched through the runtime so
-// the library needs no -lcuda.
+// cuTensorMapEncodeTiled, looked up through the runtime
+// (cudaGetDriverEntryPoint) so the library needs no -lcuda.
 EncodeTiled encode_tiled() {
   static EncodeTiled fn = nullptr;
   if (fn == nullptr) {

@@ -2,10 +2,12 @@
 
   scale_search -- fused DAQ candidate sweep (the paper's Alg. 1 hot spot)
   fp8_quant    -- one-pass block absmax + E4M3 cast
-  fp8_matmul   -- fused block-dequant fp8 matmul (fp8 serving)
+  fp8_matmul   -- fused block-dequant fp8 matmul (fp8 serving): a CUDA-core
+                  kernel for decode and a tensor-core (wgmma) kernel for
+                  prefill, picked by ``kernel.route`` from the shapes
 
 Each is a ``kernel/ops/ref`` triad like the reference's: ``kernel.py``
-launches the CUDA source in ``repro_torch/csrc/``, ``ref.py`` is the plain
+launches the CUDA source(s) in ``repro_torch/csrc/``, ``ref.py`` is the plain
 PyTorch version, and ``ops.py`` picks the kernel for GPU tensors and the
 plain version for CPU tensors.  ``_lib.KERNELS`` holds the launch counts.
 """

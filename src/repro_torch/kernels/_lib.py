@@ -4,9 +4,10 @@ Each kernel source under ``repro_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface and loaded
 with ``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries
 go to ``build/kernels/`` at the repository root, named by a hash of their
-sources, and are built at first use; :func:`build_all` starts every build
-at once.  A :class:`Kernel` counts its launches: ``launches`` grows by one
-for each successful launch of the kernel from Python, and nowhere else.
+sources (the ``.cu`` and every ``.cuh``), and are built at first use;
+:func:`build_all` starts every build at once.  A :class:`Kernel` counts
+its launches: ``launches`` grows by one for each successful launch of the
+kernel from Python, and nowhere else.
 """
 from __future__ import annotations
 

@@ -141,7 +141,7 @@ def test_both_routes_refuse_cpu_tensors_before_any_build():
     assert {k.name: k.launches for k in _lib.KERNELS} == before
 
 
-def test_wgmma_kernel_is_registered_and_issues_wgmma():
+def test_wgmma_kernel_is_registered_and_runs_wgmma():
     k = _lib.FP8_MATMUL_WGMMA
     assert k in _lib.KERNELS and k.name == "fp8_matmul_wgmma"
     assert list(k.functions) == ["matmul_fp8_wgmma"]
