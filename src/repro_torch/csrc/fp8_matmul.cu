@@ -1,27 +1,32 @@
-// Fused block-dequant fp8 matmul for Hopper (sm_90a).
+// Fused block-dequant fp8 matmul for Hopper (sm_90a): the general route.
 //
 // Replaces the TPU kernel src/repro/kernels/fp8_matmul/kernel.py:
 // matmul_fp8_pallas (body _matmul_kernel):
 //
 //   y[M, N] = x[M, K] @ (w_q[K, N] * scale[K/bs, N/bs] per bs x bs block)
 //
-// with x bf16, w_q E4M3 codes, fp32 scales and an fp32 result (the caller
-// casts).  Bound on the H100: at decode (M = slots = 8) the weight bytes
-// dominate by far — one byte per weight, the whole reason to store fp8 —
-// so the kernel is built to stream w_q once: each thread block owns 128
+// with x bf16, fp16 or fp32 (widened to fp32 as the reference does), w_q
+// E4M3 codes, fp32 scales, any quant block bs that divides K and N, and an
+// fp32 result (the caller casts).  The tensor-core routes take bf16 x and
+// block 128 only (fp8_matmul_decode.cu for M < 16, fp8_matmul_wgmma.cu for
+// M >= 16); this kernel takes every other operand pair the reference takes.
+// Bound on the H100: at few rows of x the weight bytes dominate — one byte
+// per weight — so the kernel streams w_q once: each thread block owns 128
 // output columns and 8 rows of x, each lane reads 4 adjacent E4M3 codes
 // (one 32-bit load, a warp covers 128 contiguous bytes of a weight row),
-// and the 8 warps split the rows of every bs-row slab.  Partial sums per
-// slab are scaled once by that slab's block scale (the TPU kernel's
-// "one scale per weight tile"), then the warps reduce through shared
-// memory.  With few column tiles (decode) the K slabs are split across
+// and the 8 warps split the rows of every bs-row slab.  x goes through
+// shared memory as fp32 in chunks of at most 256 rows of a slab.  Partial
+// sums per slab are scaled once by that slab's block scale (the TPU
+// kernel's "one scale per weight tile"), then the warps reduce through
+// shared memory.  With few column tiles the K slabs are split across
 // blockIdx.z to fill the 132 SMs, and a second small kernel adds the
 // per-split partials in a fixed order, so results are deterministic.
 //
-// This is the simple, right first version: fp32 FMAs on the CUDA cores, no
-// tensor cores, no TMA.  At prefill (M >= 128) it is bound by those FMAs,
-// far above the tensor-core bound; wgmma is a later change.
+// fp32 FMAs on the CUDA cores, no tensor cores, no TMA: simple and right
+// for every operand; the bf16 block-128 products of the serve path take
+// the tensor-core kernels instead.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 
 #include "common.cuh"
 
@@ -31,13 +36,18 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 8;        // rows of x per thread block
 constexpr int kCols = 128;      // output columns per thread block (4 per lane)
-constexpr int kMaxBlock = 256;  // largest quant block edge the x slab holds
+constexpr int kChunk = 256;     // rows of a slab whose x the shared buffer holds
 
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_float(float v) { return v; }
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w,
+matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
               const float* __restrict__ scales, float* __restrict__ out, int M, int K,
               int N, int bs, int kb_per_split) {
-  __shared__ float xs[kRows][kMaxBlock];
+  __shared__ float xs[kRows][kChunk];
   __shared__ float red[kWarps][kRows][kCols];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n0 = blockIdx.x * kCols;
@@ -55,35 +65,38 @@ matmul_kernel(const __nv_bfloat16* __restrict__ x, const uint8_t* __restrict__ w
     for (int j = 0; j < 4; ++j) acc[m][j] = 0.f;
 
   for (int kb = kb0; kb < kb1; ++kb) {
-    __syncthreads();
-    for (int e = threadIdx.x; e < kRows * bs; e += kThreads) {
-      const int m = e / bs, r = e - m * bs;
-      xs[m][r] = (m0 + m < M)
-                     ? __bfloat162float(x[static_cast<size_t>(m0 + m) * K +
-                                          static_cast<size_t>(kb) * bs + r])
-                     : 0.f;
-    }
-    __syncthreads();
-    if (!col_ok) continue;
     float part[kRows][4];
 #pragma unroll
     for (int m = 0; m < kRows; ++m)
 #pragma unroll
       for (int j = 0; j < 4; ++j) part[m][j] = 0.f;
-    const uint8_t* wrow = w + static_cast<size_t>(kb) * bs * N + col;
+    for (int c0 = 0; c0 < bs; c0 += kChunk) {  // one chunk unless bs > 256
+      const int len = min(kChunk, bs - c0);
+      const size_t k0 = static_cast<size_t>(kb) * bs + c0;
+      __syncthreads();
+      for (int e = threadIdx.x; e < kRows * len; e += kThreads) {
+        const int m = e / len, r = e - m * len;
+        xs[m][r] = (m0 + m < M) ? to_float(x[static_cast<size_t>(m0 + m) * K + k0 + r]) : 0.f;
+      }
+      __syncthreads();
+      if (!col_ok) continue;
+      const uint8_t* wrow = w + k0 * N + col;
 #pragma unroll 4
-    for (int r = warp; r < bs; r += kWarps) {
-      const uint32_t pk = *reinterpret_cast<const uint32_t*>(wrow + static_cast<size_t>(r) * N);
-      float wf[4];
+      for (int r = warp; r < len; r += kWarps) {
+        const uint32_t pk =
+            *reinterpret_cast<const uint32_t*>(wrow + static_cast<size_t>(r) * N);
+        float wf[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wf[j] = from_e4m3(static_cast<uint8_t>(pk >> (8 * j)));
+        for (int j = 0; j < 4; ++j) wf[j] = from_e4m3(static_cast<uint8_t>(pk >> (8 * j)));
 #pragma unroll
-      for (int m = 0; m < kRows; ++m) {
-        const float xv = xs[m][r];
+        for (int m = 0; m < kRows; ++m) {
+          const float xv = xs[m][r];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) part[m][j] = fmaf(xv, wf[j], part[m][j]);
+          for (int j = 0; j < 4; ++j) part[m][j] = fmaf(xv, wf[j], part[m][j]);
+        }
       }
     }
+    if (!col_ok) continue;
     float sc[4];
 #pragma unroll
     for (int j = 0; j < 4; ++j) sc[j] = scales[static_cast<size_t>(kb) * nsb + (col + j) / bs];
@@ -118,25 +131,37 @@ __global__ void sum_splits_kernel(const float* __restrict__ part, float* __restr
   y[i] = s;
 }
 
+template <typename T>
+cudaError_t launch(const void* x, const void* w, const float* scales, float* out, int M,
+                   int K, int N, int bs, int kb_per_split, dim3 grid, cudaStream_t st) {
+  matmul_kernel<T><<<grid, kThreads, 0, st>>>(static_cast<const T*>(x),
+                                              static_cast<const uint8_t*>(w), scales, out, M,
+                                              K, N, bs, kb_per_split);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// x: bf16 [M, K]; w: E4M3 codes [K, N] (4-byte aligned, N % 4 == 0);
-// scales: fp32 [K/bs, N/bs]; y: fp32 [M, N].  K and N are multiples of bs,
-// bs <= 256.  With splits > 1, scratch holds fp32 [splits, M, N] and each
-// split covers kb_per_split slabs of bs rows.
+// x: [M, K] of x_dtype (0 bf16, 1 fp16, 2 fp32); w: E4M3 codes [K, N]
+// (4-byte aligned, N % 4 == 0); scales: fp32 [K/bs, N/bs]; y: fp32 [M, N].
+// K and N are multiples of bs.  With splits > 1, scratch holds fp32
+// [splits, M, N] and each split covers kb_per_split slabs of bs rows.
 extern "C" int matmul_fp8(const void* x, const void* w, const float* scales, float* y,
                           float* scratch, int M, int K, int N, int bs, int splits,
-                          int kb_per_split, void* stream) {
+                          int kb_per_split, int x_dtype, void* stream) {
   if (M == 0 || N == 0) return 0;
-  if (bs > kMaxBlock || (M + kRows - 1) / kRows > 65535 || splits > 65535)
+  if (bs <= 0 || (M + kRows - 1) / kRows > 65535 || splits > 65535)
     return static_cast<int>(cudaErrorInvalidConfiguration);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid((N + kCols - 1) / kCols, (M + kRows - 1) / kRows, splits);
-  matmul_kernel<<<grid, kThreads, 0, st>>>(static_cast<const __nv_bfloat16*>(x),
-                                           static_cast<const uint8_t*>(w), scales,
-                                           splits > 1 ? scratch : y, M, K, N, bs,
-                                           kb_per_split);
-  cudaError_t err = cudaGetLastError();
+  float* out = splits > 1 ? scratch : y;
+  cudaError_t err;
+  switch (x_dtype) {
+    case 0: err = launch<__nv_bfloat16>(x, w, scales, out, M, K, N, bs, kb_per_split, grid, st); break;
+    case 1: err = launch<__half>(x, w, scales, out, M, K, N, bs, kb_per_split, grid, st); break;
+    case 2: err = launch<float>(x, w, scales, out, M, K, N, bs, kb_per_split, grid, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   const long long mn = static_cast<long long>(M) * N;
   sum_splits_kernel<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, st>>>(scratch, y, mn,

@@ -123,8 +123,8 @@ FP8_QUANT = Kernel("fp8_quant", {
     # w, alpha, q, scales, I, O, bs, qmax, qmax_recip, stream
     "quantize_fp8": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P)})
 FP8_MATMUL = Kernel("fp8_matmul", {
-    # x, w, scales, y, scratch, M, K, N, bs, splits, kb_per_split, stream
-    "matmul_fp8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)})
+    # x, w, scales, y, scratch, M, K, N, bs, splits, kb_per_split, x_dtype, stream
+    "matmul_fp8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)})
 FP8_MATMUL_WGMMA = Kernel("fp8_matmul_wgmma", {
     # x, w, scales, y, M, K, N, stream
     "matmul_fp8_wgmma": (_P, _P, _P, _P, _I, _I, _I, _P)})

@@ -15,16 +15,18 @@ from repro_torch.kernels._lib import (FP8_MATMUL, FP8_MATMUL_WGMMA, ptr, require
                                       stream_of)
 
 ROWS, COLS = 8, 128      # CUDA-core route: rows of x / output columns per thread block
-MAX_BLOCK = 256          # largest quant block edge the CUDA-core route takes
+X_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}  # CUDA-core x codes
 TARGET_BLOCKS = 2 * 132  # two thread blocks per H100 SM
 TC_MIN_ROWS = 16         # fewest rows of x that take the tensor-core route
 TC_BLOCK = 128           # the one quant block edge the tensor-core route takes
 
 
-def route(M: int, N: int, K: int, block: int) -> str:
-    """``"wgmma"`` (tensor cores) for a 128-block product of at least
-    ``TC_MIN_ROWS`` rows, else ``"cuda_core"``."""
-    return "wgmma" if block == TC_BLOCK and M >= TC_MIN_ROWS else "cuda_core"
+def route(M: int, N: int, K: int, block: int, x_dtype: torch.dtype) -> str:
+    """``"wgmma"`` (tensor cores) for a bf16, 128-block product of at least
+    ``TC_MIN_ROWS`` rows, else ``"cuda_core"`` (any x type, any block)."""
+    if x_dtype == torch.bfloat16 and block == TC_BLOCK and M >= TC_MIN_ROWS:
+        return "wgmma"
+    return "cuda_core"
 
 
 def split_k(M: int, N: int, K: int, block: int) -> tuple[int, int]:
@@ -66,6 +68,32 @@ def wgmma_operand_error(x_shape, x_strides, x_dtype, x_ptr: int, wq_shape, wq_st
     return None
 
 
+def cuda_core_operand_error(x_shape, x_strides, x_dtype, wq_shape, wq_strides, wq_dtype,
+                            wq_ptr: int, scales_shape, scales_dtype, block: int) -> str | None:
+    """Why the CUDA-core kernel cannot take these operands, or None.
+
+    A pure function of shapes, strides, dtypes and the weights' pointer:
+    row-major bf16, fp16 or fp32 x [M, K] and E4M3 wq [K, N], any quant
+    block that divides K and N, fp32 scales [K/block, N/block]; each lane
+    reads 4 codes at once, so N % 4 == 0 and wq 4-byte aligned."""
+    if x_dtype not in X_DTYPES or wq_dtype != torch.float8_e4m3fn \
+            or scales_dtype != torch.float32:
+        return (f"takes bf16, fp16 or float32 x, e4m3 wq and float32 scales, got {x_dtype}, "
+                f"{wq_dtype}, {scales_dtype}")
+    if len(x_shape) != 2 or len(wq_shape) != 2:
+        return f"takes 2-D x and wq, got {tuple(x_shape)} and {tuple(wq_shape)}"
+    (M, K), N = x_shape, wq_shape[1]
+    if block <= 0 or wq_shape[0] != K or K % block or N % block:
+        return f"x {tuple(x_shape)} @ wq {tuple(wq_shape)} needs K, N multiples of {block}"
+    if tuple(scales_shape) != (K // block, N // block):
+        return f"scales {tuple(scales_shape)} for wq {tuple(wq_shape)} at block {block}"
+    if tuple(x_strides) != (K, 1) or tuple(wq_strides) != (N, 1):
+        return "x and wq must be row-major and contiguous"
+    if N % 4 or wq_ptr % 4:
+        return f"reads 4 codes at once: needs N % 4 == 0 (N = {N}) and wq 4-byte aligned"
+    return None
+
+
 def matmul_fp8_wgmma(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor, *,
                      block: int = TC_BLOCK) -> torch.Tensor:
     """The tensor-core route, any M >= 1 (``route`` sends it M >= TC_MIN_ROWS)."""
@@ -85,31 +113,30 @@ def matmul_fp8_wgmma(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor, *,
 
 def matmul_fp8_cuda_core(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor, *,
                          block: int = 128) -> torch.Tensor:
-    """The CUDA-core route, any M (``route`` sends it decode-sized M)."""
+    """The CUDA-core route: any M, bf16 / fp16 / fp32 x, any block that
+    divides K and N (``route`` sends it what the tensor-core routes do not
+    take)."""
     require_cuda(x, wq, scales)
-    if x.dtype != torch.bfloat16 or wq.dtype != torch.float8_e4m3fn \
-            or scales.dtype != torch.float32:
-        raise TypeError("fp8_matmul kernel takes bf16 x, e4m3 wq and float32 scales")
+    err = cuda_core_operand_error(x.shape, x.stride(), x.dtype, wq.shape, wq.stride(),
+                                  wq.dtype, wq.data_ptr(), scales.shape, scales.dtype, block)
+    if err is not None:
+        raise ValueError(f"fp8_matmul: {err}")
     M, K = x.shape
     N = wq.shape[1]
-    if wq.shape[0] != K or K % block or N % block or block > MAX_BLOCK or N % 4 \
-            or scales.shape != (K // block, N // block) or wq.data_ptr() % 4:
-        raise ValueError(f"bad fp8_matmul operands x {tuple(x.shape)} wq "
-                         f"{tuple(wq.shape)} scales {tuple(scales.shape)} block {block}")
     y = torch.empty((M, N), dtype=torch.float32, device=x.device)
     splits, per = split_k(M, N, K, block)
     scratch = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) \
         if splits > 1 else y
     FP8_MATMUL.launch("matmul_fp8", ptr(x), ptr(wq), ptr(scales), ptr(y), ptr(scratch),
-                      M, K, N, block, splits, per, stream_of(x))
+                      M, K, N, block, splits, per, X_DTYPES[x.dtype], stream_of(x))
     return y
 
 
 def matmul_fp8_cuda(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor, *,
                     block: int = 128) -> torch.Tensor:
-    """Same contract as ``ref.matmul_fp8_ref``, on the GPU (x must be bf16):
-    the kernel of ``route``'s choice, or an error."""
+    """Same contract as ``ref.matmul_fp8_ref``, on the GPU: the kernel of
+    ``route``'s choice, or an error before any launch."""
     require_cuda(x, wq, scales)
-    if route(x.shape[0], wq.shape[1], wq.shape[0], block) == "wgmma":
+    if route(x.shape[0], wq.shape[1], wq.shape[0], block, x.dtype) == "wgmma":
         return matmul_fp8_wgmma(x, wq, scales, block=block)
     return matmul_fp8_cuda_core(x, wq, scales, block=block)

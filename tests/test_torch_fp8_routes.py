@@ -28,30 +28,37 @@ from repro_torch.configs import QuantConfig, get_arch
 from repro_torch.kernels import _lib
 from repro_torch.kernels.fp8_matmul import kernel as K
 from repro_torch.kernels.fp8_matmul import ops as TMM
-from repro_torch.kernels.fp8_matmul.kernel import (TC_MIN_ROWS, matmul_fp8_cuda, route,
+from repro_torch.kernels.fp8_matmul.kernel import (TC_MIN_ROWS, cuda_core_operand_error,
+                                                   matmul_fp8_cuda, route,
                                                    wgmma_operand_error)
 from repro_torch.models import build_model
 from repro_torch.quantize import quantize
 
-BF, E4, F32 = torch.bfloat16, torch.float8_e4m3fn, torch.float32
+BF, E4, F16, F32 = torch.bfloat16, torch.float8_e4m3fn, torch.float16, torch.float32
 
 
-@pytest.mark.parametrize("M,N,K_,block,want", [
-    (1024, 13696, 4096, 128, "wgmma"),        # GLM-4-9B prefill: w_gate / w_up
-    (1024, 4096, 13696, 128, "wgmma"),        # w_down
-    (1024, 4096, 4096, 128, "wgmma"),         # wq, wo
-    (1024, 256, 4096, 128, "wgmma"),          # wk, wv
-    (128, 256, 256, 128, "wgmma"),            # a 4 x 32 prefill
-    (8, 13696, 4096, 128, "cuda_core"),       # decode, 8 slots
-    (8, 151552, 4096, 128, "cuda_core"),      # the LM head (last token per slot)
-    (1, 4096, 4096, 128, "cuda_core"),
-    (1024, 13696, 4096, 64, "cuda_core"),     # another quant block
-    (1024, 13696, 4096, 256, "cuda_core"),
-    (TC_MIN_ROWS - 1, 4096, 4096, 128, "cuda_core"),
-    (TC_MIN_ROWS, 4096, 4096, 128, "wgmma"),
+@pytest.mark.parametrize("M,N,K_,block,xd,want", [
+    (1024, 13696, 4096, 128, BF, "wgmma"),        # GLM-4-9B prefill: w_gate / w_up
+    (1024, 4096, 13696, 128, BF, "wgmma"),        # w_down
+    (1024, 4096, 4096, 128, BF, "wgmma"),         # wq, wo
+    (1024, 256, 4096, 128, BF, "wgmma"),          # wk, wv
+    (128, 256, 256, 128, BF, "wgmma"),            # a 4 x 32 prefill
+    (8, 13696, 4096, 128, BF, "cuda_core"),       # decode, 8 slots
+    (8, 151552, 4096, 128, BF, "cuda_core"),      # the LM head (last token per slot)
+    (1, 4096, 4096, 128, BF, "cuda_core"),
+    (1024, 13696, 4096, 64, BF, "cuda_core"),     # another quant block
+    (1024, 13696, 4096, 256, BF, "cuda_core"),
+    (1024, 13696, 4096, 512, BF, "cuda_core"),
+    (TC_MIN_ROWS - 1, 4096, 4096, 128, BF, "cuda_core"),
+    (TC_MIN_ROWS, 4096, 4096, 128, BF, "wgmma"),
+    (8, 4096, 4096, 128, F32, "cuda_core"),       # a float32 / float16 model
+    (8, 4096, 4096, 128, F16, "cuda_core"),
+    (1024, 4096, 4096, 128, F32, "cuda_core"),
+    (1024, 4096, 4096, 128, F16, "cuda_core"),
+    (8, 4096, 4096, 64, F32, "cuda_core"),
 ])
-def test_route(M, N, K_, block, want):
-    assert route(M, N, K_, block) == want
+def test_route(M, N, K_, block, xd, want):
+    assert route(M, N, K_, block, xd) == want
 
 
 def test_prefill_takes_wgmma_and_decode_the_cuda_cores(monkeypatch):
@@ -68,7 +75,7 @@ def test_prefill_takes_wgmma_and_decode_the_cuda_cores(monkeypatch):
     real = TMM.matmul_fp8_2d
 
     def spy(x, wq, scales, *, block=128):
-        seen.append(route(x.shape[0], wq.shape[1], wq.shape[0], block))
+        seen.append(route(x.shape[0], wq.shape[1], wq.shape[0], block, x.dtype))
         return real(x, wq, scales, block=block)
 
     monkeypatch.setattr(TMM, "matmul_fp8_2d", spy)
@@ -168,3 +175,52 @@ def test_library_path_tracks_every_header(tmp_path, monkeypatch):
     assert len({p0, p1, p2, p3}) == 4
     (tmp_path / "other.cu").write_text("// another kernel, changed\n")
     assert k.library_path() == p3
+
+
+def _cc_operands(**over):
+    """Keyword arguments of ``cuda_core_operand_error`` for a valid M = 8,
+    [256, 384] block-128 product, with ``over`` replacing some."""
+    M, Kd, N = 8, 256, 384
+    args = dict(x_shape=(M, Kd), x_strides=(Kd, 1), x_dtype=BF, wq_shape=(Kd, N),
+                wq_strides=(N, 1), wq_dtype=E4, wq_ptr=1 << 21,
+                scales_shape=(Kd // 128, N // 128), scales_dtype=F32, block=128)
+    args.update(over)
+    return args
+
+
+@pytest.mark.parametrize("over", [
+    dict(),
+    dict(x_dtype=F16),
+    dict(x_dtype=F32),
+    dict(x_shape=(1, 256)),
+    dict(x_shape=(1024, 256)),
+    dict(block=64, scales_shape=(4, 6)),
+    dict(block=32, scales_shape=(8, 12)),
+    dict(block=256, wq_shape=(256, 512), wq_strides=(512, 1), scales_shape=(1, 2)),
+    dict(block=512, x_shape=(8, 1024), x_strides=(1024, 1), wq_shape=(1024, 1536),
+         wq_strides=(1536, 1), scales_shape=(2, 3)),
+    dict(wq_ptr=(1 << 21) + 4),
+])
+def test_cuda_core_operand_checks_accept(over):
+    assert cuda_core_operand_error(**_cc_operands(**over)) is None
+
+
+@pytest.mark.parametrize("over,why", [
+    (dict(x_dtype=torch.float64), "float32 x"),
+    (dict(x_dtype=torch.int8), "float32 x"),
+    (dict(wq_dtype=torch.float8_e5m2), "e4m3 wq"),
+    (dict(scales_dtype=torch.bfloat16), "float32 scales"),
+    (dict(x_shape=(2, 4, 256), x_strides=(1024, 256, 1)), "2-D"),
+    (dict(block=96, scales_shape=(2, 4)), "multiples of 96"),
+    (dict(wq_shape=(128, 384)), "multiples of 128"),
+    (dict(scales_shape=(2, 2)), "scales"),
+    (dict(block=64), "scales"),
+    (dict(x_strides=(1, 8)), "row-major"),
+    (dict(wq_strides=(512, 1)), "row-major"),
+    (dict(block=2, wq_shape=(256, 386), wq_strides=(386, 1), scales_shape=(128, 193)),
+     "N % 4"),
+    (dict(wq_ptr=(1 << 21) + 2), "4-byte aligned"),
+])
+def test_cuda_core_operand_checks_refuse(over, why):
+    err = cuda_core_operand_error(**_cc_operands(**over))
+    assert err is not None and why in err
