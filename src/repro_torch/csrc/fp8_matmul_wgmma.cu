@@ -31,11 +31,7 @@
 // weight columns for all 128 rows of x.  A consumer converts the next
 // tile's fragments while the current tile's wgmma runs (wait_group 1) and
 // folds a slab's partial sum in once its second tile's wgmma is done.
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -51,83 +47,11 @@ constexpr int kWBytes = kBK * kBN;      // 8 KB fp8 w tile (TMA, swizzled)
 constexpr int kStageBytes = kXBytes + kWBytes;
 constexpr int kSmemBytes = kStages * kStageBytes + 1024;  // + alignment slack
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wgmma shared-memory descriptor of a K-major tile of 128-byte rows with
-// the 128-byte swizzle (TMA's SWIZZLE_128B: 16-byte chunk c of row r at
-// c ^ (r % 8), base 1024-byte aligned): start address, leading byte offset
-// 16 (unused when swizzled), 1024 bytes between 8-row groups.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(16 >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 // Pin the accumulator registers in program order around wgmma (the asm that
 // waits does not name them).
 __device__ __forceinline__ void fence_operands(float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Two E4M3 codes (low byte -> low half) to two bf16, exactly.
-__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t codes) {
-  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
-      static_cast<__nv_fp8x2_storage_t>(codes & 0xFFFFu), __NV_E4M3);
-  const __nv_bfloat162 b = __float22bfloat162_rn(__half22float2(__half2(h)));
-  return *reinterpret_cast<const uint32_t*>(&b);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-// Wait for the phase of `bar` with this parity to complete.  A wait of
-// 2^34 cycles (seconds) can only be a deadlock: trap, so the launch fails
-// instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > (1ll << 34)) __trap();
-}
-// 2-D TMA load of the box at (c0 inner, c1 outer) into shared memory,
-// completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
-                                         int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
 }
 
 // d[64 x 128] (+)= A[64 x 16] . B[16 x 128], A from registers (bf16 pairs in
@@ -290,42 +214,6 @@ matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tmap_x,
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = fmaf(part[i], sc, acc[i]);
   store_tile(acc, y, m0, n0 + n, M, N, t);
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the runtime
-// (cudaGetDriverEntryPoint) so the library needs no -lcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 2-D row-major tensor map: rows x cols elements of `bytes` each, boxes of
-// box_rows x box_cols.
-bool encode(CUtensorMap* map, CUtensorMapDataType type, int bytes, const void* base,
-            uint64_t rows, uint64_t cols, uint32_t box_rows, uint32_t box_cols,
-            CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * bytes};
-  const cuuint32_t box[2] = {box_cols, box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

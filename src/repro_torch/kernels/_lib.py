@@ -128,8 +128,11 @@ FP8_MATMUL = Kernel("fp8_matmul", {
 FP8_MATMUL_WGMMA = Kernel("fp8_matmul_wgmma", {
     # x, w, scales, y, M, K, N, stream
     "matmul_fp8_wgmma": (_P, _P, _P, _P, _I, _I, _I, _P)})
+FP8_MATMUL_DECODE = Kernel("fp8_matmul_decode", {
+    # x, w, scales, y, scratch, M, K, N, bn, splits, kb_per_split, stream
+    "matmul_fp8_decode": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)})
 
-KERNELS = (SCALE_SEARCH, FP8_QUANT, FP8_MATMUL, FP8_MATMUL_WGMMA)
+KERNELS = (SCALE_SEARCH, FP8_QUANT, FP8_MATMUL, FP8_MATMUL_WGMMA, FP8_MATMUL_DECODE)
 
 
 def build_all() -> None:

@@ -1,32 +1,56 @@
-"""Launch the CUDA fused block-dequant fp8 matmul: two routes, one function.
+"""Launch the CUDA fused block-dequant fp8 matmul: three routes, one function.
 
-Replaces ``repro/kernels/fp8_matmul/kernel.py::matmul_fp8_pallas``.  The
-CUDA-core kernel (``csrc/fp8_matmul.cu``) streams the fp8 weights once and
-serves decode (few rows of x); the tensor-core kernel
-(``csrc/fp8_matmul_wgmma.cu``) runs bf16 wgmma and serves prefill.
-:func:`route` picks one from the shapes alone; each source's header says
+Replaces ``repro/kernels/fp8_matmul/kernel.py::matmul_fp8_pallas``.  For
+bf16 x and quant block 128, the serve path's products: the decode kernel
+(``csrc/fp8_matmul_decode.cu``, bf16 mma.sync fed by a TMA ring, split
+over K) takes fewer than ``TC_MIN_ROWS`` rows of x, and the prefill kernel
+(``csrc/fp8_matmul_wgmma.cu``, bf16 wgmma) the rest.  The CUDA-core kernel
+(``csrc/fp8_matmul.cu``) takes every other operand pair the reference
+takes: fp16 or fp32 x, any block that divides K and N.  :func:`route`
+picks one from the shapes and x's type alone; each source's header says
 what bounds it on the H100.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels._lib import (FP8_MATMUL, FP8_MATMUL_WGMMA, ptr, require_cuda,
-                                      stream_of)
+from repro_torch.kernels._lib import (FP8_MATMUL, FP8_MATMUL_DECODE, FP8_MATMUL_WGMMA, ptr,
+                                      require_cuda, stream_of)
 
 ROWS, COLS = 8, 128      # CUDA-core route: rows of x / output columns per thread block
 X_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}  # CUDA-core x codes
 TARGET_BLOCKS = 2 * 132  # two thread blocks per H100 SM
-TC_MIN_ROWS = 16         # fewest rows of x that take the tensor-core route
-TC_BLOCK = 128           # the one quant block edge the tensor-core route takes
+TC_MIN_ROWS = 16         # fewest rows of x that take the prefill (wgmma) route
+TC_BLOCK = 128           # the one quant block edge the tensor-core routes take
+SMS = 132                # H100 SXM streaming multiprocessors
+DECODE_TARGET = 4 * SMS  # decode route: thread blocks to aim for (~4 per SM)
+SCRATCH_BYTES = 8 << 20  # decode route: most bytes of K-split partial sums (L2-resident)
 
 
 def route(M: int, N: int, K: int, block: int, x_dtype: torch.dtype) -> str:
-    """``"wgmma"`` (tensor cores) for a bf16, 128-block product of at least
-    ``TC_MIN_ROWS`` rows, else ``"cuda_core"`` (any x type, any block)."""
-    if x_dtype == torch.bfloat16 and block == TC_BLOCK and M >= TC_MIN_ROWS:
-        return "wgmma"
-    return "cuda_core"
+    """For a bf16, 128-block product: ``"decode"`` below ``TC_MIN_ROWS``
+    rows of x, ``"wgmma"`` from there on; ``"cuda_core"`` for everything
+    else (fp16 or fp32 x, any other block)."""
+    if x_dtype != torch.bfloat16 or block != TC_BLOCK:
+        return "cuda_core"
+    return "decode" if M < TC_MIN_ROWS else "wgmma"
+
+
+def decode_plan(M: int, N: int, K: int) -> tuple[int, int, int]:
+    """(columns per block, splits, slabs per split) of the decode route.
+
+    A block owns ``bn`` output columns and a contiguous range of 128-row K
+    slabs.  ``bn`` is 128 when the 128-column tiles alone give two blocks
+    per SM (the LM head), else 64.  The K slabs are split until there are
+    ``DECODE_TARGET`` blocks, at most one split per slab, and while the
+    partial sums (4 M N bytes per split, written once and read once by the
+    second pass) fit in ``SCRATCH_BYTES``, well inside the 50 MB L2."""
+    nkb = K // TC_BLOCK
+    bn = 128 if N // 128 >= 2 * SMS else 64
+    tiles = N // bn
+    splits = max(1, min(nkb, -(-DECODE_TARGET // tiles), SCRATCH_BYTES // (4 * max(M, 1) * N)))
+    per = -(-nkb // splits)
+    return bn, -(-nkb // per), per
 
 
 def split_k(M: int, N: int, K: int, block: int) -> tuple[int, int]:
@@ -94,9 +118,42 @@ def cuda_core_operand_error(x_shape, x_strides, x_dtype, wq_shape, wq_strides, w
     return None
 
 
+def decode_operand_error(x_shape, x_strides, x_dtype, x_ptr: int, wq_shape, wq_strides,
+                         wq_dtype, wq_ptr: int, scales_shape, scales_dtype,
+                         block: int) -> str | None:
+    """Why the decode kernel cannot take these operands, or None: those of
+    the prefill kernel (``wgmma_operand_error``: the same TMA loads) with
+    1 <= M < ``TC_MIN_ROWS`` rows of x."""
+    err = wgmma_operand_error(x_shape, x_strides, x_dtype, x_ptr, wq_shape, wq_strides,
+                              wq_dtype, wq_ptr, scales_shape, scales_dtype, block)
+    if err is None and not 1 <= x_shape[0] < TC_MIN_ROWS:
+        err = f"takes 1 to {TC_MIN_ROWS - 1} rows of x, got {x_shape[0]}"
+    return err
+
+
+def matmul_fp8_decode(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor, *,
+                      block: int = TC_BLOCK) -> torch.Tensor:
+    """The decode route: bf16 x of 1 to ``TC_MIN_ROWS`` - 1 rows, block 128."""
+    require_cuda(x, wq, scales)
+    err = decode_operand_error(x.shape, x.stride(), x.dtype, x.data_ptr(), wq.shape,
+                               wq.stride(), wq.dtype, wq.data_ptr(), scales.shape,
+                               scales.dtype, block)
+    if err is not None:
+        raise ValueError(f"fp8_matmul_decode: {err}")
+    M, K = x.shape
+    N = wq.shape[1]
+    bn, splits, per = decode_plan(M, N, K)
+    y = torch.empty((M, N), dtype=torch.float32, device=x.device)
+    scratch = torch.empty((splits, M, N), dtype=torch.float32, device=x.device) \
+        if splits > 1 else y
+    FP8_MATMUL_DECODE.launch("matmul_fp8_decode", ptr(x), ptr(wq), ptr(scales), ptr(y),
+                             ptr(scratch), M, K, N, bn, splits, per, stream_of(x))
+    return y
+
+
 def matmul_fp8_wgmma(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor, *,
                      block: int = TC_BLOCK) -> torch.Tensor:
-    """The tensor-core route, any M >= 1 (``route`` sends it M >= TC_MIN_ROWS)."""
+    """The prefill route, any M >= 1 (``route`` sends it M >= TC_MIN_ROWS)."""
     require_cuda(x, wq, scales)
     err = wgmma_operand_error(x.shape, x.stride(), x.dtype, x.data_ptr(), wq.shape,
                               wq.stride(), wq.dtype, wq.data_ptr(), scales.shape,
@@ -137,6 +194,9 @@ def matmul_fp8_cuda(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor, *,
     """Same contract as ``ref.matmul_fp8_ref``, on the GPU: the kernel of
     ``route``'s choice, or an error before any launch."""
     require_cuda(x, wq, scales)
-    if route(x.shape[0], wq.shape[1], wq.shape[0], block, x.dtype) == "wgmma":
-        return matmul_fp8_wgmma(x, wq, scales, block=block)
-    return matmul_fp8_cuda_core(x, wq, scales, block=block)
+    which = route(x.shape[0], wq.shape[1], wq.shape[0], block, x.dtype)
+    return ROUTES[which](x, wq, scales, block=block)
+
+
+ROUTES = {"decode": matmul_fp8_decode, "wgmma": matmul_fp8_wgmma,
+          "cuda_core": matmul_fp8_cuda_core}

@@ -1,15 +1,17 @@
-"""The fp8 matmul's two CUDA routes, seen from the CPU.
+"""The fp8 matmul's three CUDA routes, seen from the CPU.
 
-``kernel.route`` sends prefill-sized products to the tensor-core (wgmma)
-kernel and decode-sized ones to the CUDA-core kernel; both compute the
-function of the reference's ``matmul_fp8_pallas``, whose plain version
-serves CPU tensors.  The kernels run only on the card (``chip_smoke.py``
-holds each against the plain version there); here: the route of every
-product of a prefill and a decode step, the plain version against the
-Pallas kernel on both sides of the route's threshold (rtol 1e-5, atol 1e-4,
-the reference's own kernel-test tolerance), the tensor-core wrapper's
-operand checks as a pure function of shapes, strides and pointers, and the
-build cache's key.
+``kernel.route`` sends bf16, block-128 products of fewer than
+``TC_MIN_ROWS`` rows to the decode kernel, larger ones to the prefill
+(wgmma) kernel, and every other operand pair (fp16 / fp32 x, other blocks)
+to the CUDA-core kernel; all compute the function of the reference's
+``matmul_fp8_pallas``, whose plain version serves CPU tensors.  The kernels
+run only on the card (``chip_smoke.py`` holds each against the plain
+version there); here: the route table and the route of every product of a
+prefill and a decode step, the plain version against the Pallas kernel on
+both sides of the route's threshold (rtol 1e-5, atol 1e-4, the reference's
+own kernel-test tolerance), each wrapper's operand checks as a pure
+function of shapes, strides and pointers, the decode route's split plan,
+and the build cache's key.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from repro_torch.kernels import _lib
 from repro_torch.kernels.fp8_matmul import kernel as K
 from repro_torch.kernels.fp8_matmul import ops as TMM
 from repro_torch.kernels.fp8_matmul.kernel import (TC_MIN_ROWS, cuda_core_operand_error,
+                                                   decode_operand_error, decode_plan,
                                                    matmul_fp8_cuda, route,
                                                    wgmma_operand_error)
 from repro_torch.models import build_model
@@ -43,13 +46,16 @@ BF, E4, F16, F32 = torch.bfloat16, torch.float8_e4m3fn, torch.float16, torch.flo
     (1024, 4096, 4096, 128, BF, "wgmma"),         # wq, wo
     (1024, 256, 4096, 128, BF, "wgmma"),          # wk, wv
     (128, 256, 256, 128, BF, "wgmma"),            # a 4 x 32 prefill
-    (8, 13696, 4096, 128, BF, "cuda_core"),       # decode, 8 slots
-    (8, 151552, 4096, 128, BF, "cuda_core"),      # the LM head (last token per slot)
-    (1, 4096, 4096, 128, BF, "cuda_core"),
+    (8, 13696, 4096, 128, BF, "decode"),          # decode, 8 slots
+    (8, 4096, 13696, 128, BF, "decode"),
+    (8, 256, 4096, 128, BF, "decode"),
+    (8, 151552, 4096, 128, BF, "decode"),         # the LM head (last token per slot)
+    (1, 4096, 4096, 128, BF, "decode"),
+    (8, 4096, 4096, 256, BF, "cuda_core"),
     (1024, 13696, 4096, 64, BF, "cuda_core"),     # another quant block
     (1024, 13696, 4096, 256, BF, "cuda_core"),
     (1024, 13696, 4096, 512, BF, "cuda_core"),
-    (TC_MIN_ROWS - 1, 4096, 4096, 128, BF, "cuda_core"),
+    (TC_MIN_ROWS - 1, 4096, 4096, 128, BF, "decode"),
     (TC_MIN_ROWS, 4096, 4096, 128, BF, "wgmma"),
     (8, 4096, 4096, 128, F32, "cuda_core"),       # a float32 / float16 model
     (8, 4096, 4096, 128, F16, "cuda_core"),
@@ -61,10 +67,11 @@ def test_route(M, N, K_, block, xd, want):
     assert route(M, N, K_, block, xd) == want
 
 
-def test_prefill_takes_wgmma_and_decode_the_cuda_cores(monkeypatch):
+def test_prefill_takes_wgmma_and_decode_the_decode_route(monkeypatch):
     """Every fp8 product of a GLM-shaped model: a prefill of 8 x 128 tokens
     routes each layer's seven to wgmma and its last-token LM head to the
-    CUDA cores; a decode step of 8 slots routes all of them to the CUDA cores."""
+    decode route; a decode step of 8 slots routes all of them to the decode
+    route."""
     cfg = dataclasses.replace(get_arch("glm4-9b"), n_layers=2, d_model=256, n_heads=2,
                               n_kv_heads=1, head_dim=128, d_ff=512, vocab_size=512)
     model = build_model(cfg, device="cpu")
@@ -81,10 +88,10 @@ def test_prefill_takes_wgmma_and_decode_the_cuda_cores(monkeypatch):
     monkeypatch.setattr(TMM, "matmul_fp8_2d", spy)
     tokens = torch.randint(0, cfg.vocab_size, (8, 128), generator=g)
     _, cache = model.prefill(qparams, {"tokens": tokens}, cache_len=130)
-    assert seen == ["wgmma"] * (7 * cfg.n_layers) + ["cuda_core"]
+    assert seen == ["wgmma"] * (7 * cfg.n_layers) + ["decode"]
     seen.clear()
     model.decode_step(qparams, tokens[:, :1], cache)
-    assert seen == ["cuda_core"] * (7 * cfg.n_layers + 1)
+    assert seen == ["decode"] * (7 * cfg.n_layers + 1)
 
 
 @pytest.mark.parametrize("M", [TC_MIN_ROWS - 1, TC_MIN_ROWS, 130])
@@ -136,15 +143,16 @@ def test_wgmma_operand_checks_refuse(over, why):
     assert err is not None and why in err
 
 
-def test_both_routes_refuse_cpu_tensors_before_any_build():
+def test_every_route_refuses_cpu_tensors_before_any_build():
     before = {k.name: k.launches for k in _lib.KERNELS}
     for M in (8, 1024):
         x = torch.zeros(M, 256, dtype=BF)
         with pytest.raises(ValueError, match="CUDA"):
             matmul_fp8_cuda(x, torch.zeros(256, 384).to(E4), torch.ones(2, 3))
-    with pytest.raises(ValueError, match="CUDA"):
-        K.matmul_fp8_wgmma(torch.zeros(64, 256, dtype=BF), torch.zeros(256, 384).to(E4),
-                           torch.ones(2, 3))
+    for run, M in ((K.matmul_fp8_wgmma, 64), (K.matmul_fp8_decode, 8),
+                   (K.matmul_fp8_cuda_core, 8)):
+        with pytest.raises(ValueError, match="CUDA"):
+            run(torch.zeros(M, 256, dtype=BF), torch.zeros(256, 384).to(E4), torch.ones(2, 3))
     assert {k.name: k.launches for k in _lib.KERNELS} == before
 
 
@@ -153,9 +161,28 @@ def test_wgmma_kernel_is_registered_and_runs_wgmma():
     assert k in _lib.KERNELS and k.name == "fp8_matmul_wgmma"
     assert list(k.functions) == ["matmul_fp8_wgmma"]
     src = k.source.read_text()
-    for needle in ("wgmma.mma_async", "cp.async.bulk.tensor", "mbarrier.try_wait",
+    for needle in ("wgmma.mma_async", '#include "hopper.cuh"', "tma_load(", "mbar_wait(",
                    'extern "C" int matmul_fp8_wgmma'):
         assert needle in src
+    hdr = (k.source.parent / "hopper.cuh").read_text()   # the shared TMA / mbarrier helpers
+    for needle in ("cp.async.bulk.tensor", "mbarrier.try_wait"):
+        assert needle in hdr
+
+
+def test_decode_kernel_is_registered_and_runs_mma_from_a_tma_ring():
+    k = _lib.FP8_MATMUL_DECODE
+    assert k in _lib.KERNELS and k.name == "fp8_matmul_decode"
+    assert list(k.functions) == ["matmul_fp8_decode"]
+    src = k.source.read_text()
+    for needle in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+                   '#include "hopper.cuh"', "tma_load(", "mbar_wait(", "sum_splits_kernel",
+                   'extern "C" int matmul_fp8_decode'):
+        assert needle in src
+    hdr = (k.source.parent / "hopper.cuh").read_text()
+    for needle in ("cp.async.bulk.tensor", "mbarrier.try_wait", "cuTensorMapEncodeTiled",
+                   "e4m3x2_to_bf16x2", "sw128_desc"):
+        assert needle in hdr
+    assert '#include "hopper.cuh"' in _lib.FP8_MATMUL_WGMMA.source.read_text()
 
 
 def test_library_path_tracks_every_header(tmp_path, monkeypatch):
@@ -224,3 +251,63 @@ def test_cuda_core_operand_checks_accept(over):
 def test_cuda_core_operand_checks_refuse(over, why):
     err = cuda_core_operand_error(**_cc_operands(**over))
     assert err is not None and why in err
+
+
+def test_decode_operand_checks_accept_the_decode_rows():
+    for M in (1, 8, TC_MIN_ROWS - 1):
+        assert decode_operand_error(**_operands(x_shape=(M, 256))) is None
+
+
+@pytest.mark.parametrize("over,why", [
+    (dict(x_shape=(TC_MIN_ROWS, 256)), "rows of x"),
+    (dict(x_shape=(64, 256)), "rows of x"),
+    (dict(x_shape=(0, 256)), "rows of x"),
+    (dict(x_shape=(8, 256), x_dtype=F32), "bf16 x"),
+    (dict(x_shape=(8, 256), x_dtype=F16), "bf16 x"),
+    (dict(x_shape=(8, 256), block=64, scales_shape=(4, 6)), "block 128"),
+    (dict(x_shape=(8, 256), wq_shape=(256, 200), wq_strides=(200, 1)), "multiples of 128"),
+    (dict(x_shape=(8, 256), scales_shape=(2, 2)), "scales"),
+    (dict(x_shape=(8, 256), x_strides=(512, 1)), "row-major"),
+    (dict(x_shape=(8, 256), x_ptr=(1 << 20) + 8), "16-byte aligned"),
+    (dict(x_shape=(8, 256), wq_ptr=(1 << 21) + 4), "16-byte aligned"),
+])
+def test_decode_operand_checks_refuse(over, why):
+    err = decode_operand_error(**_operands(**over))
+    assert err is not None and why in err
+
+
+DECODE_SHAPES = [(M, N, K_) for M in (1, 8, 9, TC_MIN_ROWS - 1)
+                 for N, K_ in ((4096, 4096), (256, 4096), (13696, 4096), (4096, 13696),
+                               (151552, 4096), (384, 512), (128, 128))]
+
+
+@pytest.mark.parametrize("M,N,K_", DECODE_SHAPES)
+def test_decode_plan_covers_every_tile_and_slab_once(M, N, K_):
+    bn, splits, per = decode_plan(M, N, K_)
+    nkb = K_ // 128
+    assert bn in (64, 128) and N % bn == 0 and splits >= 1 and per >= 1
+    covered = {}
+    for nt in range(N // bn):
+        for z in range(splits):
+            for kb in range(z * per, min(nkb, (z + 1) * per)):
+                covered[(nt, kb)] = covered.get((nt, kb), 0) + 1
+    assert covered == {(nt, kb): 1 for nt in range(N // bn) for kb in range(nkb)}
+    assert all(z * per < nkb for z in range(splits))          # no empty split
+    assert splits * M * N * 4 <= K.SCRATCH_BYTES or splits == 1
+
+
+@pytest.mark.parametrize("M", [1, 8, TC_MIN_ROWS - 1])
+@pytest.mark.parametrize("N,K_", [(4096, 4096), (13696, 4096), (4096, 13696)])
+def test_decode_plan_fills_the_sms_at_the_wide_widths(M, N, K_):
+    bn, splits, _ = decode_plan(M, N, K_)
+    assert (N // bn) * splits >= K.SMS
+
+
+def test_decode_plan_gives_the_narrow_width_a_block_per_slab_and_64_columns():
+    """[4096, 256] holds 1 MB of weights: 4 x 32 blocks of one 8 KB slab each."""
+    assert decode_plan(8, 256, 4096) == (64, 32, 1)
+
+
+def test_decode_plan_does_not_split_the_lm_head():
+    bn, splits, per = decode_plan(8, 151552, 4096)
+    assert (bn, splits, per) == (128, 1, 32) and 151552 // bn == 1184
