@@ -6,13 +6,14 @@
 
 Phases:
   1. environment (torch / CUDA versions, card name and power limit);
-  2. build the four CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+  2. build the five CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
      each, all at once);
   3. check each kernel against its plain PyTorch version at the shapes of
      the main path, with the tolerance stated below, and time both; the fp8
-     matmul has two routes (CUDA cores for decode, wgmma tensor cores for
-     prefill), each checked, and both timed across M to find where the
-     tensor-core route starts to win;
+     matmul has three routes (decode and prefill on the tensor cores for
+     bf16 x and block 128, the CUDA-core kernel for every other operand
+     pair), each checked, and all timed with cold weights on device time
+     across M, beside cuBLAS bf16;
   4. make full-width GLM-4-9B weights from a seeded ``torch.Generator``
      (base = post + Gaussian noise at 1 % of each matrix's std);
   5. quantize: ``quantize(post, base, QuantConfig(use_fused_kernel=True),
@@ -20,12 +21,15 @@ Phases:
   6. serve 8 greedy requests (prompt 128, 64 generated tokens) through
      ``Engine(model, qparams, slots=8, k_steps=8)``;
   7. assert that every kernel launched on that quantize -> serve run, the
-     wgmma route 7 x layers times per prefill and the CUDA-core route every
-     decode product and LM head, and check the outputs: token ranges,
-     report sanity, and a small model whose GPU run (kernels, the wgmma
-     route included) agrees with its CPU run (plain versions);
+     wgmma route 7 x layers times per prefill, the decode route every
+     decode product and LM head, the CUDA-core route never; check the
+     outputs: token ranges, report sanity, a small bf16 model whose GPU run
+     (kernels, the wgmma route included) agrees with its CPU run (plain
+     versions), and a small float32 model, the CUDA-core route's own path,
+     whose GPU run agrees with its CPU run to fp32 tolerance;
   8. break one decode step and one prefill down: host time, device busy
-     time, kernel launches and the kernels that take the device time.
+     time, kernel launches, the decode route's device time and the kernels
+     that take the device time.
 
 It exits non-zero if any phase fails and when no CUDA device is present.
 The last line of stdout is the JSON object
@@ -80,9 +84,6 @@ def time_ms(torch, fn, reps: int) -> float:
 def check_kernels(torch, seed: int) -> dict:
     """Each kernel at main-path shapes vs its plain version.  Returns the
     per-kernel record of the representative shape (others are logged)."""
-    from repro_torch.kernels.fp8_matmul.kernel import (TC_MIN_ROWS, matmul_fp8_cuda_core,
-                                                       matmul_fp8_wgmma)
-    from repro_torch.kernels.fp8_matmul.ref import matmul_fp8_ref
     from repro_torch.kernels.fp8_quant.kernel import quantize_fp8_cuda
     from repro_torch.kernels.fp8_quant.ref import quantize_fp8_ref
     from repro_torch.core.search import linspace
@@ -158,84 +159,225 @@ def check_kernels(torch, seed: int) -> dict:
             records["fp8_quant"] = rec
         del w, qk, qp
 
-    # -- fp8_matmul, both routes: |err| <= 1e-4 * |plain| + 1e-5 * max|plain|
-    #    (fp32 sums in another order)
-    def matmul_operands(M, K, N):
-        w, _ = weights(K, N)
-        wq, sc = quantize_fp8_ref(w, torch.ones(1, device=dev), block=bs)
-        x = torch.randn((M, K), generator=g, device=dev).bfloat16()
-        return x, wq, sc
-
-    def check_matmul(name, run, M, K, N):
-        x, wq, sc = matmul_operands(M, K, N)
-        w_deq = (wq.float().reshape(K // bs, bs, N // bs, bs)
-                 * sc[:, None, :, None]).reshape(K, N).bfloat16()
-        run_k = lambda: run(x, wq, sc, block=bs)
-        run_p = lambda: matmul_fp8_ref(x, wq, sc, block=bs)
-        run_l = lambda: torch.matmul(x, w_deq)
-        yk, yp = run_k(), run_p()
-        torch.cuda.synchronize()
-        err = (yk - yp).abs()
-        ok = bool((err <= 1e-4 * yp.abs() + 1e-5 * yp.abs().max()).all())
-        ms = time_ms(torch, run_k, 20)
-        plain_ms = time_ms(torch, run_p, 5)
-        lib_ms = time_ms(torch, run_l, 20)
-        b_ms, b_by = bound(M * K * 2 + K * N + (K // bs) * (N // bs) * 4 + M * N * 4,
-                           2 * M * K * N, BF16_FLOPS)
-        rec = dict(max_abs_err=float(err.max()), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=lib_ms)
-        log(f"kernel-check {name} M={M} [{K},{N}]: -> {'ok' if ok else 'FAIL'}; "
-            + json.dumps(rec))
-        if not ok:
-            raise AssertionError(f"{name} kernel disagrees at M={M} [{K},{N}]")
-        return rec
-
-    prefill = SLOTS * PROMPT
-    # CUDA-core route (decode): the slots' rows at every main-path width and
-    # the LM head, the prefill width, and small ragged edges
-    for M, (K, N), main in ((SLOTS, (4096, 13696), True), (SLOTS, (4096, 4096), False),
-                            (SLOTS, (4096, 256), False), (SLOTS, (13696, 4096), False),
-                            (SLOTS, (4096, 151552), False), (prefill, (4096, 13696), False),
-                            (1, (512, 384), False), (200, (512, 384), False)):
-        rec = check_matmul("fp8_matmul", matmul_fp8_cuda_core, M, K, N)
-        if main:
-            records["fp8_matmul"] = rec
-    # tensor-core route (prefill): the prompt rows at every main-path width,
-    # and ragged M at a small width
-    for M, (K, N) in ([(prefill, kn) for kn in ((4096, 13696), (4096, 4096), (4096, 256),
-                                                  (13696, 4096))]
-                      + [(M, (512, 384)) for M in (64, 65, 200, 1000)]):
-        rec = check_matmul("fp8_matmul_wgmma", matmul_fp8_wgmma, M, K, N)
-        if M == prefill and (K, N) == (4096, 13696):
-            records["fp8_matmul_wgmma"] = rec
-    # where the tensor-core route starts to win: both routes across M, per
-    # width and summed over a layer's seven products (wq, wo; wk, wv;
-    # w_gate, w_up; w_down)
-    per_layer = {(4096, 4096): 2, (4096, 256): 2, (4096, 13696): 2, (13696, 4096): 1}
-    layer = {}
-    for (K, N), count in per_layer.items():
-        for M in (8, 16, 32, 64, 128):
-            x, wq, sc = matmul_operands(M, K, N)
-            w_deq = (wq.float().reshape(K // bs, bs, N // bs, bs)
-                     * sc[:, None, :, None]).reshape(K, N).bfloat16()
-            t_cc = time_ms(torch, lambda: matmul_fp8_cuda_core(x, wq, sc, block=bs), 20)
-            t_tc = time_ms(torch, lambda: matmul_fp8_wgmma(x, wq, sc, block=bs), 20)
-            t_lib = time_ms(torch, lambda: torch.matmul(x, w_deq), 20)
-            b_ms, b_by = bound(M * K * 2 + K * N + (K // bs) * (N // bs) * 4 + M * N * 4,
-                               2 * M * K * N, BF16_FLOPS)
-            cc, tc = layer.get(M, (0.0, 0.0))
-            layer[M] = (cc + count * t_cc, tc + count * t_tc)
-            log(f"crossover M={M} [{K},{N}]: cuda_core {t_cc:.4f} ms, wgmma {t_tc:.4f} ms, "
-                f"cuBLAS bf16 {t_lib:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    for M, (cc, tc) in layer.items():
-        log(f"crossover M={M}, a layer's seven products: cuda_core {cc:.4f} ms, "
-            f"wgmma {tc:.4f} ms")
-    first_win = min((M for M, (cc, tc) in layer.items() if tc < cc), default=None)
-    log(f"crossover: smallest swept M at which the wgmma route takes a layer's products "
-        f"faster: {first_win}; route() sends M >= TC_MIN_ROWS = {TC_MIN_ROWS} to it "
-        f"(decode, M = {SLOTS}, stays on the CUDA cores)")
+    torch.cuda.empty_cache()
+    records.update(check_matmul_routes(torch, g))
+    crossover(torch, g)
     torch.cuda.empty_cache()
     return records
+
+
+COLD_BYTES = 128 << 20   # weight copies rotated per timing: well over the 50 MB L2
+
+
+def device_ms(torch, calls, reps: int = 24) -> float:
+    """Mean device time of one call, in ms, with cold weights.
+
+    ``calls`` are zero-argument callables, each on its own copy of the
+    weights (together over ``COLD_BYTES``), launched in turn, so no launch
+    finds its weights in the L2.  The time is the sum of the durations of
+    every kernel the calls launch (a split product's second pass included),
+    from ``torch.profiler``'s device events: no host issue time.  If the
+    profiler sees no device events, the calls are captured in a CUDA graph
+    and its replay timed with CUDA events instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = max(reps, len(calls))
+    for c in calls:                         # warm-up: builds, allocator
+        c()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            calls[i % len(calls)]()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    if us > 0:
+        return us / 1e3 / n
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            calls[i % len(calls)]()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def finite_e4m3_codes(torch, K: int, N: int):
+    """An E4M3 [K, N] whose every 128 x 128 tile holds all 254 finite codes
+    (0x7F and 0xFF, the NaNs, left out)."""
+    c = torch.arange(K * N, device="cuda").remainder(254)
+    c = c + (c >= 0x7F).long()
+    return c.to(torch.uint8).view(torch.float8_e4m3fn).reshape(K, N)
+
+
+def matmul_bytes(M, K, N, block=128, x_bytes=2):
+    return M * K * x_bytes + K * N + (K // block) * (N // block) * 4 + M * N * 4
+
+
+class MatmulCase:
+    """Operands of one fp8 product, in ``copies`` independent copies of the
+    weights (together over ``COLD_BYTES``) for cold timings; copy 0 is the
+    one checked."""
+
+    def __init__(self, torch, g, M, K, N, *, block=128, x_dtype=None, all_codes=False,
+                 timed=True):
+        from repro_torch.kernels.fp8_quant.ref import quantize_fp8_ref
+        self.M, self.K, self.N, self.block = M, K, N, block
+        x_dtype = x_dtype or torch.bfloat16
+        self.x = torch.randn((M, K), generator=g, device="cuda").to(x_dtype)
+        n = max(2, -(-COLD_BYTES // (K * N))) if timed else 1
+        self.w = []
+        for _ in range(n):
+            if all_codes:
+                wq = finite_e4m3_codes(torch, K, N)
+                sc = torch.rand((K // block, N // block), generator=g, device="cuda") * 1e-3 + 1e-4
+            else:
+                w = torch.randn((K, N), generator=g, device="cuda") * 0.02
+                wq, sc = quantize_fp8_ref(w, torch.ones(1, device="cuda"), block=block)
+                del w
+            self.w.append((wq, sc))
+        self._deq = None
+
+    def deq(self):
+        """bf16 dequantized weights per copy: cuBLAS's operands."""
+        if self._deq is None:
+            b, K, N = self.block, self.K, self.N
+            self._deq = [(wq.float().reshape(K // b, b, N // b, b) * sc[:, None, :, None])
+                         .reshape(K, N).bfloat16() for wq, sc in self.w]
+        return self._deq
+
+    def calls(self, run):
+        return [lambda wq=wq, sc=sc: run(self.x, wq, sc, block=self.block) for wq, sc in self.w]
+
+    def library_calls(self, torch):
+        x = self.x.bfloat16()
+        return [lambda w=w: torch.matmul(x, w) for w in self.deq()]
+
+
+def check_matmul(torch, name, run, case, *, time_it=False) -> dict:
+    """``run`` against the plain version on copy 0 of ``case``: |err| <=
+    1e-4 |plain| + 1e-5 max|plain| (fp32 sums in another order; bf16 x bf16
+    products are exact in fp32).  With ``time_it``, cold device times of the
+    kernel, the plain version and cuBLAS bf16."""
+    from repro_torch.kernels.fp8_matmul.ref import matmul_fp8_ref
+    M, K, N, bs = case.M, case.K, case.N, case.block
+    wq, sc = case.w[0]
+    yk = run(case.x, wq, sc, block=bs)
+    yp = matmul_fp8_ref(case.x, wq, sc, block=bs)
+    torch.cuda.synchronize()
+    err = (yk - yp).abs()
+    ok = bool(torch.isfinite(yk).all()) and bool((err <= 1e-4 * yp.abs()
+                                                  + 1e-5 * yp.abs().max()).all())
+    rec = dict(max_abs_err=float(err.max()))
+    if time_it:
+        b_ms, b_by = bound(matmul_bytes(M, K, N, bs, case.x.element_size()), 2 * M * K * N,
+                           BF16_FLOPS)
+        rec.update(ms=device_ms(torch, case.calls(run)),
+                   plain_ms=device_ms(torch, case.calls(matmul_fp8_ref), reps=len(case.w)),
+                   bound_ms=b_ms, bound_by=b_by,
+                   library_ms=device_ms(torch, case.library_calls(torch)))
+    log(f"kernel-check {name} M={M} [{K},{N}] x {str(case.x.dtype)[6:]} block {bs}: -> "
+        f"{'ok' if ok else 'FAIL'}; " + json.dumps(rec))
+    if not ok:
+        raise AssertionError(f"{name} kernel disagrees at M={M} [{K},{N}] block {bs}")
+    return rec
+
+
+DECODE_WIDTHS = ((4096, 13696), (4096, 4096), (4096, 256), (13696, 4096), (4096, 151552))
+
+
+def check_matmul_routes(torch, g) -> dict:
+    """The fp8 matmul's three routes against the plain version at the
+    shapes the main path and the route table give them."""
+    from repro_torch.kernels.fp8_matmul.kernel import (matmul_fp8_cuda_core,
+                                                       matmul_fp8_decode, matmul_fp8_wgmma)
+    records = {}
+    f32, f16 = torch.float32, torch.float16
+    # decode route (bf16 x, M < 16): the slots' rows at every decode width
+    # and the LM head, ragged M, and weights whose tiles hold every finite
+    # code (64- and 128-column blocks)
+    for K, N in DECODE_WIDTHS:
+        main = (K, N) == (4096, 13696)
+        rec = check_matmul(torch, "fp8_matmul_decode", matmul_fp8_decode,
+                           MatmulCase(torch, g, SLOTS, K, N, timed=main), time_it=main)
+        if main:
+            records["fp8_matmul_decode"] = rec
+    for M in (1, 2, 7, 9, 15):
+        for K, N in ((512, 384), (4096, 4096)):
+            check_matmul(torch, "fp8_matmul_decode", matmul_fp8_decode,
+                         MatmulCase(torch, g, M, K, N, timed=False))
+    check_matmul(torch, "fp8_matmul_decode", matmul_fp8_decode,
+                 MatmulCase(torch, g, 15, 4096, 151552, timed=False))
+    for M, (K, N) in ((SLOTS, (512, 384)), (15, (512, 33792))):
+        check_matmul(torch, "fp8_matmul_decode (all finite codes)", matmul_fp8_decode,
+                     MatmulCase(torch, g, M, K, N, all_codes=True, timed=False))
+    # CUDA-core route: what the tensor-core routes do not take (fp32 and
+    # fp16 x, blocks 64 and 512), and its M = 8 bf16 time for comparison
+    records["fp8_matmul"] = check_matmul(
+        torch, "fp8_matmul", matmul_fp8_cuda_core, MatmulCase(torch, g, SLOTS, 4096, 13696),
+        time_it=True)
+    for x_dtype in (f32, f16):
+        check_matmul(torch, "fp8_matmul", matmul_fp8_cuda_core,
+                     MatmulCase(torch, g, SLOTS, 4096, 4096, x_dtype=x_dtype, timed=False))
+    for block in (64, 512):
+        check_matmul(torch, "fp8_matmul", matmul_fp8_cuda_core,
+                     MatmulCase(torch, g, SLOTS, 1024, 1536, block=block, timed=False))
+    check_matmul(torch, "fp8_matmul", matmul_fp8_cuda_core,
+                 MatmulCase(torch, g, 200, 512, 384, x_dtype=f32, block=64, timed=False))
+    # prefill route (M >= 16): the prompt rows at every main-path width,
+    # and ragged M at a small width from the route's threshold up
+    prefill = SLOTS * PROMPT
+    for K, N in ((4096, 13696), (4096, 4096), (4096, 256), (13696, 4096)):
+        main = (K, N) == (4096, 13696)
+        rec = check_matmul(torch, "fp8_matmul_wgmma", matmul_fp8_wgmma,
+                           MatmulCase(torch, g, prefill, K, N, timed=main), time_it=main)
+        if main:
+            records["fp8_matmul_wgmma"] = rec
+    for M in (16, 17, 33, 63, 64, 65, 200, 1000):
+        check_matmul(torch, "fp8_matmul_wgmma", matmul_fp8_wgmma,
+                     MatmulCase(torch, g, M, 512, 384, timed=False))
+    return records
+
+
+def crossover(torch, g) -> None:
+    """Cold device time of every route and of cuBLAS bf16 across M, per
+    width and summed over a layer's seven products (wq, wo; wk, wv;
+    w_gate, w_up; w_down); the LM head at the slots' M."""
+    from repro_torch.kernels.fp8_matmul.kernel import (TC_MIN_ROWS, matmul_fp8_cuda_core,
+                                                       matmul_fp8_decode, matmul_fp8_wgmma)
+    per_layer = {(4096, 4096): 2, (4096, 256): 2, (4096, 13696): 2, (13696, 4096): 1}
+    routes = {"cuda_core": matmul_fp8_cuda_core, "decode": matmul_fp8_decode,
+              "wgmma": matmul_fp8_wgmma}
+    layer: dict[int, dict[str, float]] = {}
+    for (K, N), count in [*per_layer.items(), ((4096, 151552), 0)]:
+        case = MatmulCase(torch, g, 1, K, N)
+        for M in ((1, 8, 15, 16, 32, 64, 128) if count else (SLOTS,)):
+            case.x = torch.randn((M, K), generator=g, device="cuda").bfloat16()
+            t = {r: device_ms(torch, case.calls(fn)) for r, fn in routes.items()
+                 if r != "decode" or M < TC_MIN_ROWS}
+            t["cuBLAS bf16"] = device_ms(torch, case.library_calls(torch))
+            b_ms, b_by = bound(matmul_bytes(M, K, N), 2 * M * K * N, BF16_FLOPS)
+            for r, ms in t.items():
+                layer.setdefault(M, {}).setdefault(r, 0.0)
+                layer[M][r] += count * ms
+            log(f"crossover M={M} [{K},{N}] (cold device ms): "
+                + ", ".join(f"{r} {ms:.4f}" for r, ms in t.items())
+                + f"; bound {b_ms:.4f} ({b_by})")
+        del case
+        torch.cuda.empty_cache()
+    for M, t in layer.items():
+        if any(t.values()):
+            log(f"crossover M={M}, a layer's seven products (cold device ms): "
+                + ", ".join(f"{r} {ms:.4f}" for r, ms in t.items()))
+    log(f"crossover: route() sends bf16 block-128 products of M < TC_MIN_ROWS = "
+        f"{TC_MIN_ROWS} to the decode route and the rest to wgmma")
 
 
 # ---------------------------------------------------------------------------
@@ -312,6 +454,86 @@ def small_model_agreement(torch, seed: int) -> None:
         raise AssertionError("small model: GPU and CPU prefill logits disagree")
 
 
+def fp32_model_agreement(torch, seed: int) -> dict:
+    """The CUDA-core route's own path: operands the tensor-core routes do not
+    take.  A small GLM-shaped model with ``dtype="float32"`` parameters over
+    block-64 fp8 weights (quantized once on the CPU) is prefilled and stepped
+    once on the CPU (plain versions) and on the GPU, where every product
+    takes the CUDA-core kernel.  Its activations are bf16 whatever the
+    parameters' type (``models/common.py::ACT_DTYPE``, as in the reference),
+    so its logits are held to the bf16 model's tolerance, 5 % of the largest.
+    Then each quantized linear of its first layer and its LM head takes fp32
+    x through ``ops.matmul_fp8`` and fp16 x through ``ops.matmul_fp8_2d`` on
+    both devices: |gpu - cpu| <= 1e-4 |cpu| + 1e-5 max|cpu| (fp32 sums in
+    another order).  Returns the kernels' launch counts of the GPU runs,
+    zeroed just before them."""
+    from repro_torch.configs import QuantConfig, get_arch
+    from repro_torch.kernels._lib import FP8_MATMUL, KERNELS
+    from repro_torch.kernels.fp8_matmul import ops
+    from repro_torch.models import build_model
+    from repro_torch.quant_runtime.qparams import QuantizedTensor
+    from repro_torch.quantize import quantize
+    from repro_torch.core.policy import tree_map
+    cfg = dataclasses.replace(get_arch("glm4-9b"), n_layers=2, d_model=256, n_heads=2,
+                              n_kv_heads=1, head_dim=128, d_ff=512, vocab_size=1024,
+                              dtype="float32")
+    m_cpu, m_gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
+    g = torch.Generator().manual_seed(seed + 2)
+    post = m_cpu.init(g)
+    base = tree_map(lambda t: t if t.ndim < 2 else
+                    t + 0.01 * t.std() * torch.randn(t.shape, generator=g), post)
+    q_cpu, _ = quantize(post, base, QuantConfig(use_fused_kernel=True, block_size=64),
+                        mode="storage")
+    q_gpu = tree_map(lambda t: dataclasses.replace(t, data=t.data.cuda(), scale=t.scale.cuda())
+                     if isinstance(t, QuantizedTensor) else t.cuda(), q_cpu)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 32), generator=g)
+    nxt = torch.randint(0, cfg.vocab_size, (4, 1), generator=g)
+    lc, cc = m_cpu.prefill(q_cpu, {"tokens": tokens}, cache_len=40)
+    dc, _ = m_cpu.decode_step(q_cpu, nxt, cc)
+    layer0 = lambda q: [q["stack"]["L0"][part][name].layer(0)
+                        for part, names in (("attn", ("wq", "wk", "wv", "wo")),
+                                            ("mlp", ("w_gate", "w_up", "w_down")))
+                        for name in names] + [q["embed"]["w_head"]]
+    xs = [torch.randn((8, w.shape[0]), generator=g) for w in layer0(q_cpu)]
+
+    for k in KERNELS:
+        k.launches = 0
+    lg, cg = m_gpu.prefill(q_gpu, {"tokens": tokens.cuda()}, cache_len=40)
+    dg, _ = m_gpu.decode_step(q_gpu, nxt.cuda(), cg)
+    direct = [(ops.matmul_fp8(x.cuda(), wg), ops.matmul_fp8(x, wc),
+               ops.matmul_fp8_2d(x.half().cuda(), wg.data, wg.scale[:, 0, :, 0], block=64),
+               ops.matmul_fp8_2d(x.half(), wc.data, wc.scale[:, 0, :, 0], block=64))
+              for x, wg, wc in zip(xs, layer0(q_gpu), layer0(q_cpu))]
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in KERNELS}
+
+    want = 2 * (7 * cfg.n_layers + 1) + 2 * len(xs)
+    if launches[FP8_MATMUL.name] != want or sum(launches.values()) != want:
+        raise AssertionError(f"float32 model: launches {launches}, expected {want}, all "
+                             f"of {FP8_MATMUL.name}")
+    for name, gpu, cpu in (("prefill", lg, lc), ("decode", dg, dc)):
+        err = (gpu.float().cpu() - cpu.float()).abs().max().item()
+        scale = cpu.float().abs().max().item()
+        log(f"float32-model agreement ({name}, block 64, CUDA-core route): logits max "
+            f"|gpu - cpu| = {err:.4g} (max |logit| {scale:.4g}, tolerance 5% of it)")
+        if not err <= 0.05 * scale:
+            raise AssertionError(f"float32 model: GPU and CPU {name} logits disagree")
+    worst = 0.0
+    for y32g, y32c, y16g, y16c in direct:
+        for gpu, cpu, dtype in ((y32g, y32c, torch.float32), (y16g, y16c, torch.float32)):
+            gpu = gpu.cpu()
+            if gpu.dtype != dtype or cpu.dtype != dtype:
+                raise AssertionError(f"float32 model: product in {gpu.dtype}, expected {dtype}")
+            err = (gpu - cpu).abs()
+            worst = max(worst, float((err / (1e-4 * cpu.abs() + 1e-5 * cpu.abs().max())).max()))
+    log(f"float32-model agreement: {len(direct)} linears x fp32 and fp16 x on the CUDA-core "
+        f"route, worst |gpu - cpu| at {worst:.3f} of its tolerance; launches "
+        f"{json.dumps(launches)}")
+    if not worst <= 1.0:
+        raise AssertionError("float32 model: GPU and CPU fp32 / fp16-x products disagree")
+    return launches
+
+
 def main_path(torch, args, records: dict) -> None:
     from repro_torch.configs import QuantConfig, get_arch
     from repro_torch.engine import Engine
@@ -366,14 +588,17 @@ def main_path(torch, args, records: dict) -> None:
         f"({stats['decode_s'] / stats['decode_steps'] * 1e3:.2f} ms per step of {SLOTS} slots)")
     log(f"launches on the main path: {json.dumps(launches)}")
     for name, n in launches.items():
-        records[name]["launches"] = n
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the main path")
-    # seven quantized products per layer: prefill rows take the tensor-core
-    # route; decode rows and each LM head (last token, M = slots) the CUDA cores
+        if name != "fp8_matmul":
+            records[name]["launches"] = n
+            if n <= 0:
+                raise AssertionError(f"kernel {name} never launched on the main path")
+    # seven quantized products per layer: prefill rows take the wgmma route;
+    # decode rows and each LM head (last token, M = slots) the decode route;
+    # bf16 x at block 128 never takes the CUDA-core route
     want = {"fp8_matmul_wgmma": 7 * cfg.n_layers * stats["prefill_calls"],
-            "fp8_matmul": (7 * cfg.n_layers + 1) * stats["decode_steps"]
-            + stats["prefill_calls"]}
+            "fp8_matmul_decode": (7 * cfg.n_layers + 1) * stats["decode_steps"]
+            + stats["prefill_calls"],
+            "fp8_matmul": 0}
     log(f"fp8 routes: {stats['prefill_calls']} prefill(s), {stats['decode_steps']} decode "
         f"steps -> expected launches {json.dumps(want)}")
     for name, n in want.items():
@@ -425,6 +650,11 @@ def device_breakdown(torch, label: str, run, per: int, unit: str) -> None:
     log(f"{label} breakdown: {host_ms:.2f} ms per {unit} on the host clock; device busy "
         f"{busy_ms:.2f} ms per {unit} (idle share {1 - busy_ms / host_ms:.3f}); "
         f"{n_launch:.0f} kernel launches per {unit}")
+    route = [(n, t) for name, (n, t) in kernels.items()
+             if "decode_kernel" in name or "sum_splits_kernel" in name]
+    log(f"{label} breakdown: fp8 decode route (decode_kernel + its split sum) "
+        f"{sum(t for _, t in route) / per:.3f} ms per {unit} on the device, "
+        f"{sum(n for n, _ in route) / per:.0f} kernel launches per {unit}")
     for name, (n, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]:
         log(f"  {t / per:8.3f} ms/{unit}  {n / per:6.0f} launches/{unit}  {name[:90]}")
 
@@ -499,7 +729,11 @@ def main() -> int:
 
     t0 = time.perf_counter()
     small_model_agreement(torch, args.seed)
-    log(f"small-model check in {time.perf_counter() - t0:.1f} s")
+    fp32_launches = fp32_model_agreement(torch, args.seed)
+    log(f"small-model checks in {time.perf_counter() - t0:.1f} s")
+    # the CUDA-core kernel's path is the float32 model's (bf16 serves never
+    # reach it): its launches are counted there
+    records["fp8_matmul"]["launches"] = fp32_launches["fp8_matmul"]
     main_path(torch, args, records)
 
     sources = {"scale_search": ("src/repro_torch/csrc/scale_search.cu",
@@ -509,7 +743,9 @@ def main() -> int:
                "fp8_matmul": ("src/repro_torch/csrc/fp8_matmul.cu",
                               "src/repro/kernels/fp8_matmul/kernel.py:45"),
                "fp8_matmul_wgmma": ("src/repro_torch/csrc/fp8_matmul_wgmma.cu",
-                                    "src/repro/kernels/fp8_matmul/kernel.py:45")}
+                                    "src/repro/kernels/fp8_matmul/kernel.py:45"),
+               "fp8_matmul_decode": ("src/repro_torch/csrc/fp8_matmul_decode.cu",
+                                     "src/repro/kernels/fp8_matmul/kernel.py:45")}
     kernels = [{"name": name, "route": "cuda", "source": sources[name][0],
                 "replaces": sources[name][1], "launches": rec["launches"],
                 **{k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
