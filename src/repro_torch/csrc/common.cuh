@@ -35,6 +35,24 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// y[i] = sum over z of part[z * mn + i], z = 0, 1, ... in order: the
+// deterministic second pass of a product split over K (partials [splits, mn]).
+__global__ void sum_splits_kernel(const float* __restrict__ part, float* __restrict__ y,
+                                  long long mn, int splits) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= mn) return;
+  float s = 0.f;
+  for (int z = 0; z < splits; ++z) s += part[z * mn + i];
+  y[i] = s;
+}
+
+inline cudaError_t sum_splits(const float* part, float* y, long long mn, int splits,
+                              cudaStream_t st) {
+  sum_splits_kernel<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, st>>>(part, y, mn,
+                                                                          splits);
+  return cudaGetLastError();
+}
+
 extern "C" const char* error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

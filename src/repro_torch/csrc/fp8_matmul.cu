@@ -122,15 +122,6 @@ matmul_kernel(const T* __restrict__ x, const uint8_t* __restrict__ w,
   }
 }
 
-__global__ void sum_splits_kernel(const float* __restrict__ part, float* __restrict__ y,
-                                  long long mn, int splits) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += part[z * mn + i];
-  y[i] = s;
-}
-
 template <typename T>
 cudaError_t launch(const void* x, const void* w, const float* scales, float* out, int M,
                    int K, int N, int bs, int kb_per_split, dim3 grid, cudaStream_t st) {
@@ -163,8 +154,5 @@ extern "C" int matmul_fp8(const void* x, const void* w, const float* scales, flo
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const long long mn = static_cast<long long>(M) * N;
-  sum_splits_kernel<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, st>>>(scratch, y, mn,
-                                                                          splits);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(sum_splits(scratch, y, static_cast<long long>(M) * N, splits, st));
 }

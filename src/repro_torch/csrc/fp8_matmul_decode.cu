@@ -215,15 +215,6 @@ decode_kernel(const __grid_constant__ CUtensorMap tmap_x,
   }
 }
 
-__global__ void sum_splits_kernel(const float* __restrict__ part, float* __restrict__ y,
-                                  long long mn, int splits) {
-  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float s = 0.f;
-  for (int z = 0; z < splits; ++z) s += part[z * mn + i];
-  y[i] = s;
-}
-
 template <int BN, int NT>
 cudaError_t launch(const CUtensorMap& tmap_x, const CUtensorMap& tmap_w, const float* scales,
                    float* out, int M, int N, int nkb, int splits, int kb_per_split,
@@ -276,8 +267,5 @@ extern "C" int matmul_fp8_decode(const void* x, const void* w, const float* scal
     err = nt == 1 ? launch<64, 1>(tmap_x, tmap_w, scales, out, M, N, nkb, splits, kb_per_split, st)
                   : launch<64, 2>(tmap_x, tmap_w, scales, out, M, N, nkb, splits, kb_per_split, st);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const long long mn = static_cast<long long>(M) * N;
-  sum_splits_kernel<<<static_cast<unsigned>((mn + 255) / 256), 256, 0, st>>>(scratch, y, mn,
-                                                                          splits);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(sum_splits(scratch, y, static_cast<long long>(M) * N, splits, st));
 }

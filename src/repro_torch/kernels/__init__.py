@@ -2,9 +2,10 @@
 
   scale_search -- fused DAQ candidate sweep (the paper's Alg. 1 hot spot)
   fp8_quant    -- one-pass block absmax + E4M3 cast
-  fp8_matmul   -- fused block-dequant fp8 matmul (fp8 serving): a CUDA-core
-                  kernel for decode and a tensor-core (wgmma) kernel for
-                  prefill, picked by ``kernel.route`` from the shapes
+  fp8_matmul   -- fused block-dequant fp8 matmul (fp8 serving): tensor-core
+                  kernels for decode (mma.sync) and prefill (wgmma), and a
+                  CUDA-core kernel for every other operand pair, picked by
+                  ``kernel.route`` from the shapes and x's dtype
 
 Each is a ``kernel/ops/ref`` triad like the reference's: ``kernel.py``
 launches the CUDA source(s) in ``repro_torch/csrc/``, ``ref.py`` is the plain

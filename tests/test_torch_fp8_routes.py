@@ -175,7 +175,7 @@ def test_decode_kernel_is_registered_and_runs_mma_from_a_tma_ring():
     assert list(k.functions) == ["matmul_fp8_decode"]
     src = k.source.read_text()
     for needle in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
-                   '#include "hopper.cuh"', "tma_load(", "mbar_wait(", "sum_splits_kernel",
+                   '#include "hopper.cuh"', "tma_load(", "mbar_wait(", "sum_splits(",
                    'extern "C" int matmul_fp8_decode'):
         assert needle in src
     hdr = (k.source.parent / "hopper.cuh").read_text()

@@ -152,3 +152,48 @@ def test_quantized_linears_take_the_fp8_matmul_route(setup):
     for name in ("w_gate", "w_up", "w_down"):
         assert _fused_kernel_applies(qparams["stack"]["L0"]["mlp"][name].layer(0))
     assert _fused_kernel_applies(qparams["embed"]["w_head"])
+
+
+def test_float32_model_over_block_fp8_weights_matches_reference(monkeypatch):
+    """A ``dtype="float32"`` reduced GLM with block-fp8 storage weights: its
+    quantized linears go through ``ops.matmul_fp8`` (the plain version on the
+    CPU; on the card the route for its operands), and its prefill and decode
+    logits match the reference's.  Activations are bf16 in both frameworks
+    whatever the parameters' type, so the bf16 logit tolerance holds."""
+    import dataclasses as dc
+
+    from repro_torch.kernels.fp8_matmul import ops as TMM
+    cfg = dc.replace(ref_reduced(ref_get_arch("glm4-9b")), dtype="float32")
+    ref_model = ref_build_model(cfg)
+    shapes = jax.eval_shape(ref_model.init, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(4)
+    ref_params = jax.tree_util.tree_map(
+        lambda s: jnp.asarray((rng.standard_normal(s.shape) * (s.shape[-2] ** -0.5
+                                                               if len(s.shape) >= 2 else 0.1)
+                               + (0.0 if len(s.shape) >= 2 else 1.0)).astype(np.float32)),
+        shapes)
+    params = params_from_jax(jax.device_get(ref_params))
+    from repro_torch.core.policy import tree_leaves_with_path
+    assert {t.dtype for _, t in tree_leaves_with_path(params)} == {torch.float32}
+    model = build_model(dc.replace(reduced(get_arch("glm4-9b")), dtype="float32"), device="cpu")
+    qparams, _ = quantize(params, params, QuantConfig(use_fused_kernel=True, block_size=32),
+                          mode="storage", out_dtype="float32")
+    assert qparams["stack"]["L0"]["mlp"]["w_up"].data.dtype == torch.float8_e4m3fn
+    calls = []
+    real = TMM.matmul_fp8
+
+    def spy(x, qt):
+        calls.append(x.shape[-1])
+        return real(x, qt)
+
+    monkeypatch.setattr(TMM, "matmul_fp8", spy)
+    rq = to_reference(qparams)
+    toks = _tokens(2, 10, 7)
+    rl, rc = ref_model.prefill(rq, {"tokens": jnp.asarray(toks)}, cache_len=16)
+    pl, pc = model.prefill(qparams, {"tokens": torch.from_numpy(toks)}, cache_len=16)
+    _close(pl, rl, 2e-2)
+    nxt = _tokens(2, 1, 8)
+    rl, _ = ref_model.decode_step(rq, jnp.asarray(nxt), rc)
+    pl, _ = model.decode_step(qparams, torch.from_numpy(nxt), pc)
+    _close(pl, rl, 2e-2)
+    assert len(calls) == 2 * (7 * cfg.n_layers + 1)
