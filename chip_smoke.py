@@ -378,6 +378,25 @@ def crossover(torch, g) -> None:
                 + ", ".join(f"{r} {ms:.4f}" for r, ms in t.items()))
     log(f"crossover: route() sends bf16 block-128 products of M < TC_MIN_ROWS = "
         f"{TC_MIN_ROWS} to the decode route and the rest to wgmma")
+    # a decode step is host-bound: what each route costs the host per call
+    case = MatmulCase(torch, g, SLOTS, 4096, 256, timed=False)
+    t = {r: host_us(torch, case.calls(fn)[0]) for r, fn in routes.items()}
+    t["cuBLAS bf16"] = host_us(torch, case.library_calls(torch)[0])
+    log(f"host issue per call, M={SLOTS} [4096,256] (us on the host clock): "
+        + ", ".join(f"{r} {us:.1f}" for r, us in t.items()))
+
+
+def host_us(torch, call, reps: int = 500) -> float:
+    """Host microseconds per call of a product small enough that the device
+    finishes each before the next is issued: ``reps`` calls back to back on
+    the host clock, ending in a synchronize."""
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e6
 
 
 # ---------------------------------------------------------------------------

@@ -143,7 +143,8 @@ def test_wgmma_operand_checks_refuse(over, why):
     assert err is not None and why in err
 
 
-def test_every_route_refuses_cpu_tensors_before_any_build():
+def test_both_routes_refuse_cpu_tensors_before_any_build():
+    """Every route (decode, wgmma, CUDA cores) refuses CPU tensors before any build."""
     before = {k.name: k.launches for k in _lib.KERNELS}
     for M in (8, 1024):
         x = torch.zeros(M, 256, dtype=BF)
