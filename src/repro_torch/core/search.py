@@ -137,10 +137,11 @@ def _search_fused(w_post, w_base, qcfg: QuantConfig) -> SearchResult:
     dev = w_post.device
     w_post = w_post.float()
     w_base = w_base.float()
-    amax = absmax(w_post, "block", qcfg.block_size)
+    amax = absmax(w_post, "block", qcfg.block_size)     # [I/bs, 1, O/bs, 1]
+    amax_2d = amax[:, 0, :, 0]
 
     def stage_best(alphas):
-        parts = K.sweep(w_post, w_base, alphas, block_size=qcfg.block_size)
+        parts = K.sweep(w_post, w_base, alphas, block_size=qcfg.block_size, amax=amax_2d)
         objs = K.objective_values(parts, qcfg.metric, qcfg.hybrid_lambda)
         return alphas[torch.argmax(objs)]
 

@@ -2,6 +2,9 @@
 
 Replaces ``repro/kernels/scale_search/kernel.py::sweep_partials_pallas``;
 the source's header says what bounds it on the H100 and how it is built.
+One pass of the kernel takes at most ``MAX_CAND`` candidates (one compiled
+instance per count); a stage with more runs in the chunks of
+:func:`sweep_plan`, one pass over the weights each.
 """
 from __future__ import annotations
 
@@ -10,6 +13,21 @@ import torch
 from repro_torch.core.formats import f32_reciprocal
 from repro_torch.kernels._lib import SCALE_SEARCH, ptr, require_cuda, stream_of
 from repro_torch.kernels.scale_search.ref import N_STATS
+
+MAX_CAND = 16   # csrc/scale_search.cu::kMaxCand
+
+
+def sweep_plan(n_cand: int) -> list[tuple[int, int]]:
+    """``[(start, count), ...]``: candidates ``0 .. n_cand - 1`` in order, in
+    as few chunks of at most ``MAX_CAND`` as there can be, of near-equal
+    size (20 -> 10 + 10: two passes of the smaller instance, not 16 + 4)."""
+    n_chunks = -(-n_cand // MAX_CAND)
+    plan, start = [], 0
+    for i in range(n_chunks):
+        count = (n_cand - start) // (n_chunks - i)
+        plan.append((start, count))
+        start += count
+    return plan
 
 
 def sweep_partials_cuda(wp: torch.Tensor, wb: torch.Tensor, amax: torch.Tensor,
@@ -28,7 +46,8 @@ def sweep_partials_cuda(wp: torch.Tensor, wb: torch.Tensor, amax: torch.Tensor,
     n_cand = alphas.shape[0]
     out = torch.empty((n_cand, I // bs, O // bs, N_STATS), dtype=torch.float32,
                       device=wp.device)
-    SCALE_SEARCH.launch("sweep_partials", ptr(wp), ptr(wb), ptr(amax), ptr(alphas),
-                        ptr(out), I, O, bs, n_cand, qmax, f32_reciprocal(qmax),
-                        stream_of(wp))
+    for start, count in sweep_plan(n_cand):
+        SCALE_SEARCH.launch("sweep_partials", ptr(wp), ptr(wb), ptr(amax),
+                            ptr(alphas[start:]), ptr(out[start]), I, O, bs, count, qmax,
+                            f32_reciprocal(qmax), stream_of(wp))
     return out

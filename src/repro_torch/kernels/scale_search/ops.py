@@ -25,13 +25,19 @@ def sweep_partials(wp, wb, amax, alphas, *, block_size: int = 128,
 
 
 def sweep(wp: torch.Tensor, wb: torch.Tensor, alphas: torch.Tensor, *,
-          block_size: int = 128, qmax: float = 448.0) -> dict:
+          block_size: int = 128, qmax: float = 448.0,
+          amax: torch.Tensor | None = None) -> dict:
     """Returns dict of [n_cand] tensor-level partials + [n_cand, nbi, nbo]
-    block-level partials."""
+    block-level partials.  ``amax`` [nbi, nbo], the block max|wp| clamped to
+    1e-12 as ``granularity.absmax(wp, "block")`` gives it, saves computing
+    it again; without it the sweep computes it."""
     wp_p, _ = pad_to_blocks(wp.float(), block_size)
     wb_p, _ = pad_to_blocks(wb.float(), block_size)
     nbi, nbo = wp_p.shape[0] // block_size, wp_p.shape[1] // block_size
-    amax = to_blocked(wp_p, block_size).abs().amax(dim=(1, 3)).clamp_min(EPS)
+    if amax is None:
+        amax = to_blocked(wp_p, block_size).abs().amax(dim=(1, 3)).clamp_min(EPS)
+    elif amax.shape != (nbi, nbo):
+        raise ValueError(f"amax {tuple(amax.shape)} for a block grid of {(nbi, nbo)}")
     parts = sweep_partials(wp_p.contiguous(), wb_p.contiguous(), amax.contiguous(),
                            alphas.float().contiguous(), block_size=block_size, qmax=qmax)
 

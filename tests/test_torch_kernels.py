@@ -117,6 +117,27 @@ def test_sweep_wrapper_pads_and_reduces_like_reference():
                                    np.asarray(RS.objective_values(ref, metric)), rtol=1e-5)
 
 
+@pytest.mark.parametrize("shape,bs", [((130, 70), 64), ((300, 200), 128), ((256, 384), 128)])
+def test_sweep_with_passed_amax_equals_sweep_computing_it(shape, bs):
+    """``_search_fused`` hands the sweep the block amax it already has
+    (``absmax(w, "block")``, [I/bs, 1, O/bs, 1]); every output, s0 included,
+    is bit-equal to the sweep's own, ragged shapes too."""
+    from repro_torch.core.granularity import absmax
+    wp, wb = (_t(a) for a in _pair(shape, jnp.bfloat16, 3))
+    alphas = _t(np.float32([1.0, 0.8, 0.95, 1.1, 1.25]))
+    own = TS.sweep(wp, wb, alphas, block_size=bs)
+    amax = absmax(wp, "block", bs)
+    passed = TS.sweep(wp, wb, alphas, block_size=bs, amax=amax[:, 0, :, 0])
+    assert passed["grid"] == own["grid"]
+    assert torch.equal(passed["s0"], own["s0"])
+    for level in ("tensor", "block"):
+        assert passed[level].keys() == own[level].keys()
+        for k in own[level]:
+            assert torch.equal(passed[level][k], own[level][k]), (level, k)
+    with pytest.raises(ValueError, match="amax"):
+        TS.sweep(wp, wb, alphas, block_size=bs, amax=amax)
+
+
 @pytest.mark.parametrize("shape,b", [((256, 256), 128), ((128, 384), 128),
                                      ((256, 128), 64), ((64, 192), 64)])
 @pytest.mark.parametrize("alpha", [1.0, 1.0375])
