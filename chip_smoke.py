@@ -5,31 +5,39 @@
     python3 chip_smoke.py --layers 8      # cut depth if a run overruns its time
 
 Phases:
-  1. environment (torch / CUDA versions, card name and power limit);
+  1. environment (torch / CUDA versions, card name, power limit and
+     maximum SM clock);
   2. build the five CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
-     each, all at once);
+     each, all at once); print each sweep instance's registers and spills
+     (none allowed) and its element loop's SASS instructions per element
+     and candidate (``cuobjdump``, where the toolkit has it);
   3. check each kernel against its plain PyTorch version at the shapes of
-     the main path, with the tolerance stated below, and time both; the fp8
-     matmul has three routes (decode and prefill on the tensor cores for
-     bf16 x and block 128, the CUDA-core kernel for every other operand
-     pair), each checked, and all timed with cold weights on device time
-     across M, beside cuBLAS bf16;
+     the main path, with the tolerance stated below, and time both; the
+     sweep also at 1, 16 and 20 candidates (two passes), blocks 64, 96,
+     256 and 66 and qmax 240 (the last two: the scalar-load instance), its
+     time beside the bound and the issue bound of its SASS; the fp8 matmul
+     has three routes (decode and prefill on the tensor cores for bf16 x
+     and block 128, the CUDA-core kernel for every other operand pair),
+     each checked, and all timed with cold weights on device time across
+     M, beside cuBLAS bf16;
   4. make full-width GLM-4-9B weights from a seeded ``torch.Generator``
      (base = post + Gaussian noise at 1 % of each matrix's std);
   5. quantize: ``quantize(post, base, QuantConfig(use_fused_kernel=True),
-     mode="storage")``;
+     mode="storage")``; print a hash of the chosen alphas;
   6. serve 8 greedy requests (prompt 128, 64 generated tokens) through
      ``Engine(model, qparams, slots=8, k_steps=8)``;
   7. assert that every kernel launched on that quantize -> serve run, the
+     sweep one pass a stage and the quantizer once per leaf-layer, the
      wgmma route 7 x layers times per prefill, the decode route every
      decode product and LM head, the CUDA-core route never; check the
      outputs: token ranges, report sanity, a small bf16 model whose GPU run
      (kernels, the wgmma route included) agrees with its CPU run (plain
      versions), and a small float32 model, the CUDA-core route's own path,
      whose GPU run agrees with its CPU run to fp32 tolerance;
-  8. break one decode step and one prefill down: host time, device busy
-     time, kernel launches, the decode route's device time and the kernels
-     that take the device time.
+  8. break one decode step, one prefill and one quantize (GLM-4-9B cut to
+     4 layers at full width) down: host time, device busy time, kernel
+     launches, the decode route's device time and the kernels that take
+     the device time.
 
 It exits non-zero if any phase fails and when no CUDA device is present.
 The last line of stdout is the JSON object
@@ -39,8 +47,10 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import hashlib
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -78,17 +88,169 @@ def time_ms(torch, fn, reps: int) -> float:
 
 
 # ---------------------------------------------------------------------------
+# Phase 2: what ptxas and the SASS say of the sweep's instances
+# ---------------------------------------------------------------------------
+
+SWEEP_INSTANCE = re.compile(r"sweep_kernelILi(\d+)ELi(\d+)E")
+
+
+def sweep_resources(build_log: str) -> dict:
+    """``{(NC, V): (registers, spill store bytes, spill load bytes)}`` of
+    every sweep instance, from ``ptxas -v`` (an entry's lines follow its
+    "Compiling entry function" line)."""
+    found, cur = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            inst = SWEEP_INSTANCE.search(m.group(1))
+            cur = (int(inst.group(1)), int(inst.group(2))) if inst else None
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            found.setdefault(cur, [None, 0, 0])[1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            found.setdefault(cur, [None, 0, 0])[0] = int(m.group(1))
+    return {k: tuple(v) for k, v in found.items()}
+
+
+def sweep_sass(lib_path: Path, cuobjdump: Path) -> dict | None:
+    """``{(NC, V): (instructions, opcode mix)}`` of each sweep instance's
+    element loop: the largest innermost loop of its SASS that divides (a
+    backward branch with no other inside it, and a MUFU in it), whose body
+    is one row step, V elements against NC candidates, counted as the fast
+    path issues it (without the slow paths a branch skips, the division's).
+    ``None`` where the toolkit has no ``cuobjdump``."""
+    if not cuobjdump.exists():
+        return None
+    return sweep_loops(subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                                      capture_output=True, text=True, timeout=300,
+                                      check=True).stdout)
+
+
+def sweep_loops(text: str) -> dict:
+    """``sweep_sass`` on the text of ``cuobjdump -sass``."""
+    out = {}
+    for chunk in text.split("Function : ")[1:]:
+        inst = SWEEP_INSTANCE.search(chunk.split("\n", 1)[0])
+        if not inst:
+            continue
+        code = [(int(m.group(1), 16), m.group(2)) for m in
+                re.finditer(r"/\*([0-9a-f]{4,})\*/\s+(.+?)\s*;", chunk)]
+        branches = [(addr, int(t.group(1), 16)) for addr, ins in code
+                    if (t := re.search(r"BRA\b.*?(0x[0-9a-f]+)", ins))]
+        loops = [(target, addr) for addr, target in branches if target <= addr]
+        divides = lambda a, b: any("MUFU" in i for x, i in code if a <= x <= b)
+        inner = [(a, b) for a, b in loops if divides(a, b)
+                 and not any((a, b) != (c, d) and a <= c and d <= b for c, d in loops)]
+        if not inner:
+            continue
+        a, b = max(inner, key=lambda ab: ab[1] - ab[0])
+        # a forward branch over a CALL skips a slow path (the division's):
+        # its instructions are not issued on the fast path
+        skipped = set()
+        for addr, target in branches:
+            if a <= addr <= b and target > addr:
+                over = [(x, i) for x, i in code if addr < x < target]
+                if any("CALL" in i for _, i in over):
+                    skipped.update(x for x, _ in over)
+        ops = [re.sub(r"^@!?U?P\w+\s+", "", ins).split()[0].split(".")[0]
+               for addr, ins in code if a <= addr <= b and addr not in skipped]
+        mix: dict[str, int] = {}
+        for op in ops:
+            mix[op] = mix.get(op, 0) + 1
+        out[(int(inst.group(1)), int(inst.group(2)))] = (len(ops), mix)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def check_kernels(torch, seed: int) -> dict:
+# (I, O), candidates, block, qmax, timed: the main path's stages at
+# [4096,13696] (the record: 11 candidates), the LM head, a small width; then
+# one, 16 and 20 candidates (two passes), blocks 64, 256 and 96 (4-column
+# groups: 24 a row, not a power of two), block 66 and qmax 240 (the scalar-
+# load instance, which also clips above qmax)
+SWEEP_CASES = (((4096, 13696), 6, 128, 448.0, True), ((4096, 13696), 11, 128, 448.0, True),
+               ((4096, 151552), 11, 128, 448.0, True), ((384, 512), 11, 128, 448.0, True),
+               ((512, 384), 1, 128, 448.0, False), ((512, 384), 16, 128, 448.0, False),
+               ((512, 384), 20, 128, 448.0, False), ((512, 384), 11, 64, 448.0, False),
+               ((512, 768), 11, 256, 448.0, False), ((384, 480), 11, 96, 448.0, False),
+               ((396, 330), 11, 66, 448.0, False), ((396, 330), 20, 66, 448.0, False),
+               ((512, 384), 11, 128, 240.0, False))
+
+
+def check_sweeps(torch, weights, sass: dict | None, clock_mhz: float | None) -> dict:
+    """The sweep against its plain version: sign counts equal, the other sums
+    |err| <= 1e-4 |plain| + 1e-6 max|plain|.  Timed cases: CUDA-event mean
+    of back-to-back launches (the inputs are over the 50 MB L2 at the main
+    widths), beside the bound and, from the element loop's SASS, the issue
+    bound (its instructions at one warp instruction per scheduler per clock,
+    4 schedulers an SM, at the card's maximum SM clock).  Returns the record
+    of [4096,13696] at 11 candidates."""
+    from repro_torch.core.search import linspace
+    from repro_torch.kernels._lib import SCALE_SEARCH
+    from repro_torch.kernels.scale_search.kernel import sweep_partials_cuda, sweep_plan
+    from repro_torch.kernels.scale_search.ref import sweep_partials_ref
+    dev = "cuda"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    record = None
+    for (I, O), n_cand, bs, qmax, timed in SWEEP_CASES:
+        wp, wb = weights(I, O)
+        amax = wp.reshape(I // bs, bs, O // bs, bs).abs().amax(dim=(1, 3)).clamp_min(1e-12)
+        grid = linspace(0.8, 1.25, n_cand - 1, dev) if n_cand > 1 else torch.ones(0, device=dev)
+        alphas = torch.cat([torch.ones(1, device=dev), grid])
+        run_k = lambda: sweep_partials_cuda(wp, wb, amax, alphas, block_size=bs, qmax=qmax)
+        run_p = lambda: sweep_partials_ref(wp, wb, amax, alphas, block_size=bs, qmax=qmax)
+        before = SCALE_SEARCH.launches
+        pk = run_k()
+        passes = SCALE_SEARCH.launches - before
+        pp = run_p()
+        torch.cuda.synchronize()
+        sign_diff = (pk[..., 1] - pp[..., 1]).abs().max().item()
+        cont = [0, 2, 3, 4]
+        err = (pk[..., cont] - pp[..., cont]).abs()
+        tol = 1e-4 * pp[..., cont].abs() + 1e-6 * pp[..., cont].abs().max()
+        plan = [count for _, count in sweep_plan(n_cand)]
+        ok = sign_diff == 0 and bool((err <= tol).all()) and passes == len(plan) \
+            and bool((pk[..., 5:] == 0).all())
+        v = 4 if bs % 4 == 0 and O % 4 == 0 and qmax == 448.0 else 1
+        rec = dict(max_abs_err=float((pk - pp).abs().max()))
+        if timed:
+            nb = (I // bs) * (O // bs)
+            b_ms, b_by = bound(2 * I * O * 4 + nb * 4 + n_cand * 4 + n_cand * nb * 8 * 4,
+                               I * O * (3 + 12 * n_cand), FP32_FLOPS)
+            rec.update(ms=time_ms(torch, run_k, 10), plain_ms=time_ms(torch, run_p, 2),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            loop = (sass or {}).get((n_cand, v))
+            if loop and clock_mhz:
+                per_elem = loop[0] / v
+                rec["sass_per_elem_cand"] = per_elem / n_cand
+                rec["issue_ms"] = I * O * per_elem / 32 / (4 * sms * clock_mhz * 1e6) * 1e3
+        log(f"kernel-check scale_search [{I},{O}] n_cand={n_cand} block {bs} qmax {qmax:g} "
+            f"({'float4' if v == 4 else 'scalar'} loads, {passes} pass(es) of {plan} "
+            f"candidates): sign-count diff "
+            f"{sign_diff:g}, max |err| sums {err.max().item():.3e} -> {'ok' if ok else 'FAIL'}; "
+            + json.dumps(rec))
+        if not ok:
+            raise AssertionError(f"scale_search kernel disagrees at [{I},{O}] n_cand={n_cand} "
+                                 f"block {bs} qmax {qmax:g} ({passes} passes, expected "
+                                 f"{len(plan)})")
+        if (I, O, n_cand, bs) == (4096, 13696, 11, 128):
+            record = rec
+        del wp, wb, pk, pp
+        torch.cuda.empty_cache()
+    return record
+
+
+def check_kernels(torch, seed: int, sass: dict | None, clock_mhz: float | None) -> dict:
     """Each kernel at main-path shapes vs its plain version.  Returns the
     per-kernel record of the representative shape (others are logged)."""
     from repro_torch.kernels.fp8_quant.kernel import quantize_fp8_cuda
     from repro_torch.kernels.fp8_quant.ref import quantize_fp8_ref
-    from repro_torch.core.search import linspace
-    from repro_torch.kernels.scale_search.kernel import sweep_partials_cuda
-    from repro_torch.kernels.scale_search.ref import sweep_partials_ref
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
@@ -100,36 +262,7 @@ def check_kernels(torch, seed: int) -> dict:
         wb = (wp + torch.randn((I, O), generator=g, device=dev) * 2e-4).bfloat16().float()
         return wp, wb
 
-    # -- scale_search: sign counts exact, other sums |err| <= 1e-4 * |plain| + 1e-6 * max|plain|
-    for (I, O), n_cand, main in (((4096, 13696), 6, False), ((4096, 13696), 11, True),
-                                 ((4096, 151552), 11, False), ((384, 512), 11, False)):
-        wp, wb = weights(I, O)
-        amax = wp.reshape(I // bs, bs, O // bs, bs).abs().amax(dim=(1, 3)).clamp_min(1e-12)
-        alphas = torch.cat([torch.ones(1, device=dev), linspace(0.8, 1.25, n_cand - 1, dev)])
-        run_k = lambda: sweep_partials_cuda(wp, wb, amax, alphas, block_size=bs)
-        run_p = lambda: sweep_partials_ref(wp, wb, amax, alphas, block_size=bs)
-        pk, pp = run_k(), run_p()
-        torch.cuda.synchronize()
-        sign_diff = (pk[..., 1] - pp[..., 1]).abs().max().item()
-        cont = [0, 2, 3, 4]
-        err = (pk[..., cont] - pp[..., cont]).abs()
-        tol = 1e-4 * pp[..., cont].abs() + 1e-6 * pp[..., cont].abs().max()
-        ok = sign_diff == 0 and bool((err <= tol).all())
-        ms = time_ms(torch, run_k, 10)
-        plain_ms = time_ms(torch, run_p, 2)
-        nb = (I // bs) * (O // bs)
-        b_ms, b_by = bound(2 * I * O * 4 + nb * 4 + n_cand * 4 + n_cand * nb * 8 * 4,
-                           I * O * (3 + 12 * n_cand), FP32_FLOPS)
-        rec = dict(max_abs_err=float((pk - pp).abs().max()), ms=ms, plain_ms=plain_ms,
-                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
-        log(f"kernel-check scale_search [{I},{O}] n_cand={n_cand}: sign-count diff "
-            f"{sign_diff:g}, max |err| sums {err.max().item():.3e} -> {'ok' if ok else 'FAIL'}; "
-            + json.dumps(rec))
-        if not ok:
-            raise AssertionError(f"scale_search kernel disagrees at [{I},{O}] n_cand={n_cand}")
-        if main:
-            records["scale_search"] = rec
-        del wp, wb, pk, pp
+    records["scale_search"] = check_sweeps(torch, weights, sass, clock_mhz)
 
     # -- fp8_quant: codes and scales bit-equal
     for (I, O), main in (((4096, 13696), True), ((4096, 151552), False),
@@ -557,6 +690,7 @@ def main_path(torch, args, records: dict) -> None:
     from repro_torch.configs import QuantConfig, get_arch
     from repro_torch.engine import Engine
     from repro_torch.kernels._lib import KERNELS
+    from repro_torch.kernels.scale_search.kernel import sweep_plan
     from repro_torch.models import build_model
     from repro_torch.quantize import quantize
 
@@ -599,6 +733,8 @@ def main_path(torch, args, records: dict) -> None:
     log(f"quantize: {quant_s:.2f} s for {report.n_quantized} tensors "
         f"({report.original_bytes / 1e9:.2f} GB bf16 -> {report.quantized_bytes / 1e9:.2f} GB), "
         f"peak {quant_peak:.2f} GB")
+    log(f"quantize: chosen-alpha hash {alpha_hash(report)} over {leaf_layers(report)} "
+        f"leaf-layers")
     dec_tokens = stats["counters"]["tokens"]
     log(f"serve: {len(outputs)} requests x {GEN} tokens in {serve_s:.2f} s "
         f"({SLOTS * GEN / serve_s:.1f} tok/s end to end); prefill {stats['prefill_s']:.3f} s "
@@ -611,6 +747,15 @@ def main_path(torch, args, records: dict) -> None:
             records[name]["launches"] = n
             if n <= 0:
                 raise AssertionError(f"kernel {name} never launched on the main path")
+    # one sweep pass a stage (the coarse and fine grids with the incumbent:
+    # 1 + 5 and 1 + 10 candidates) and one quantizer launch per leaf-layer
+    n = leaf_layers(report)
+    qcfg = QuantConfig()
+    passes = len(sweep_plan(1 + qcfg.n_coarse)) + len(sweep_plan(1 + qcfg.n_fine))
+    for name, want_n in (("scale_search", passes * n), ("fp8_quant", n)):
+        if launches[name] != want_n:
+            raise AssertionError(f"{name} launched {launches[name]} times on the quantize, "
+                                 f"expected {want_n} for {n} leaf-layers")
     # seven quantized products per layer: prefill rows take the wgmma route;
     # decode rows and each LM head (last token, M = slots) the decode route;
     # bf16 x at block 128 never takes the CUDA-core route
@@ -640,7 +785,7 @@ def main_path(torch, args, records: dict) -> None:
     breakdowns(torch, model, qparams, torch.stack(requests))
 
 
-def device_breakdown(torch, label: str, run, per: int, unit: str) -> None:
+def device_breakdown(torch, label: str, run, per: int, unit: str, top: int = 8) -> None:
     """Host time of ``run()`` (which ends in a synchronize) without the
     profiler, then one ``torch.profiler`` window over another ``run()`` for
     the device's busy time, its kernel launches and the kernels by time;
@@ -671,10 +816,11 @@ def device_breakdown(torch, label: str, run, per: int, unit: str) -> None:
         f"{n_launch:.0f} kernel launches per {unit}")
     route = [(n, t) for name, (n, t) in kernels.items()
              if "decode_kernel" in name or "sum_splits_kernel" in name]
-    log(f"{label} breakdown: fp8 decode route (decode_kernel + its split sum) "
-        f"{sum(t for _, t in route) / per:.3f} ms per {unit} on the device, "
-        f"{sum(n for n, _ in route) / per:.0f} kernel launches per {unit}")
-    for name, (n, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:8]:
+    if route:
+        log(f"{label} breakdown: fp8 decode route (decode_kernel + its split sum) "
+            f"{sum(t for _, t in route) / per:.3f} ms per {unit} on the device, "
+            f"{sum(n for n, _ in route) / per:.0f} kernel launches per {unit}")
+    for name, (n, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]:
         log(f"  {t / per:8.3f} ms/{unit}  {n / per:6.0f} launches/{unit}  {name[:90]}")
 
 
@@ -699,6 +845,52 @@ def breakdowns(torch, model, qparams, prompts, steps: int = 8) -> None:
 
     device_breakdown(torch, f"prefill ({prompts.shape[0]} x {prompts.shape[1]} tokens)",
                      prefill, 1, "prefill")
+
+
+def leaf_layers(report) -> int:
+    """Matrices the quantize searched: a stacked leaf [L, I, O] counts L."""
+    return sum(leaf["shape"][0] if len(leaf["shape"]) == 3 else 1
+               for leaf in report.per_leaf.values())
+
+
+def alpha_hash(report) -> str:
+    """sha256 (first 16 hex digits) of every leaf's chosen alphas (float32,
+    leaves by name): the sign metric's argmax reads integer counts, so a
+    correct sweep reproduces a tree's alphas exactly."""
+    h = hashlib.sha256()
+    for name in sorted(report.per_leaf):
+        h.update(name.encode())
+        h.update(report.per_leaf[name]["alpha"].astype("float32").tobytes())
+    return h.hexdigest()[:16]
+
+
+def quantize_breakdown(torch, seed: int, layers: int = 4) -> None:
+    """Where one quantize goes: GLM-4-9B at full width cut to ``layers``
+    layers (the embedding and the LM head included, weights as phase 4),
+    per leaf-layer: host time, device busy time, launches and the kernels
+    by device time (the sweep, the quantizer, and PyTorch's elementwise and
+    reduction kernels of the search and ``_finalize``)."""
+    from repro_torch.configs import QuantConfig, get_arch
+    from repro_torch.models import build_model
+    from repro_torch.quantize import quantize
+
+    cfg = dataclasses.replace(get_arch("glm4-9b"), n_layers=layers)
+    post, base = make_weights(torch, build_model(cfg), seed)
+    _, report = quantize(post, base, QuantConfig(use_fused_kernel=True), mode="storage")
+    n = leaf_layers(report)
+
+    def run():
+        quantize(post, base, QuantConfig(use_fused_kernel=True), mode="storage")
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    run()
+    log(f"quantize breakdown: {cfg.name}, {layers} layers at full width, {n} leaf-layers "
+        f"({report.original_bytes / 1e9:.2f} GB bf16): {time.perf_counter() - t0:.3f} s a "
+        f"quantize on the host clock")
+    device_breakdown(torch, f"quantize ({layers} layers)", run, n, "leaf-layer", top=12)
+    del post, base
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -730,6 +922,11 @@ def main() -> int:
         f"cuda {torch.version.cuda}  device {torch.cuda.get_device_name(0)} "
         f"x{torch.cuda.device_count()}")
     log(f"nvidia-smi: {smi}")
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                            "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                           timeout=60).stdout.strip().splitlines()
+    clock_mhz = float(clock[0]) if clock and clock[0].strip().isdigit() else None
+    log(f"maximum SM clock: {clock_mhz} MHz")
 
     # 2. build
     from repro_torch.kernels import _lib
@@ -737,13 +934,31 @@ def main() -> int:
     _lib.build_all()
     log(f"built {len(_lib.KERNELS)} kernel libraries in {time.perf_counter() - t0:.1f} s")
     for k in _lib.KERNELS:
+        if k is _lib.SCALE_SEARCH:
+            continue
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {k.name}: {line.strip()}")
+    # the sweep's instances: registers and spills (ptxas), and the SASS
+    # instructions of the element loop (one row step: V elements x NC candidates)
+    resources = sweep_resources(_lib.SCALE_SEARCH.build_log)
+    sass = sweep_sass(_lib.SCALE_SEARCH.library_path(), Path(_lib.nvcc()).parent / "cuobjdump")
+    for (nc, v), (regs, st, ld) in sorted(resources.items()):
+        loop = (sass or {}).get((nc, v))
+        mix = ", ".join(f"{op} {c}" for op, c in
+                        sorted(loop[1].items(), key=lambda kv: -kv[1])[:10]) if loop else ""
+        log(f"  scale_search NC={nc:2d} V={v}: {regs} registers, spill stores {st} B, "
+            f"spill loads {ld} B; element loop "
+            + (f"{loop[0]} SASS instructions = {loop[0] / (nc * v):.1f} per element and "
+               f"candidate ({mix})" if loop else "not measured (no cuobjdump)"))
+    if not resources:
+        raise AssertionError("ptxas reported no sweep instance")
+    if any(st or ld for _, st, ld in resources.values()):
+        raise AssertionError("a sweep instance spills registers")
 
     # 3. kernels vs plain versions
     t0 = time.perf_counter()
-    records = check_kernels(torch, args.seed)
+    records = check_kernels(torch, args.seed, sass, clock_mhz)
     log(f"kernel checks passed in {time.perf_counter() - t0:.1f} s")
 
     t0 = time.perf_counter()
@@ -754,6 +969,7 @@ def main() -> int:
     # reach it): its launches are counted there
     records["fp8_matmul"]["launches"] = fp32_launches["fp8_matmul"]
     main_path(torch, args, records)
+    quantize_breakdown(torch, args.seed)
 
     sources = {"scale_search": ("src/repro_torch/csrc/scale_search.cu",
                                 "src/repro/kernels/scale_search/kernel.py:79"),

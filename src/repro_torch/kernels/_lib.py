@@ -4,7 +4,8 @@ Each kernel source under ``repro_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface and loaded
 with ``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries
 go to ``build/kernels/`` at the repository root, named by a hash of their
-sources (the ``.cu`` and every ``.cuh``), and are built at first use;
+sources (the ``.cu`` and every ``.cuh``), each with its nvcc / ptxas log
+beside it, and are built at first use;
 :func:`build_all` starts every build at once.  A :class:`Kernel` counts
 its launches: ``launches`` grows by one for each successful launch of the
 kernel from Python, and nowhere else.
@@ -63,10 +64,13 @@ class Kernel:
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
 
     def start_build(self) -> tuple | None:
-        """Start nvcc for this source unless its library exists; the output
-        lands under a temporary name and is renamed when complete."""
+        """Start nvcc for this source unless its library exists (then
+        ``build_log`` is the log kept beside it); the output lands under a
+        temporary name and is renamed when complete."""
         out = self.library_path()
         if out.exists():
+            log = out.with_suffix(".log")
+            self.build_log = log.read_text() if log.exists() else ""
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -83,6 +87,7 @@ class Kernel:
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed for {self.source.name}:\n{self.build_log}")
+        out.with_suffix(".log").write_text(self.build_log)
         os.replace(tmp, out)
 
     def lib(self) -> ctypes.CDLL:

@@ -205,6 +205,27 @@ def test_library_path_tracks_every_header(tmp_path, monkeypatch):
     assert k.library_path() == p3
 
 
+def test_build_log_is_kept_beside_the_library(tmp_path, monkeypatch):
+    """A cached library still reports its ptxas lines (chip_smoke phase 2
+    reads them): the log of the build that made it is kept beside it."""
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text("// a kernel\n")
+    fake = tmp_path / "nvcc"
+    fake.write_text('#!/bin/sh\nwhile [ $# -gt 0 ]; do [ "$1" = "-o" ] && out=$2; shift; done\n'
+                    'echo "ptxas info    : Used 42 registers"\n: > "$out"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_lib, "CSRC", csrc)
+    monkeypatch.setattr(_lib, "BUILD_DIR", build)
+    monkeypatch.setattr(_lib, "nvcc", lambda: str(fake))
+    first = _lib.Kernel("k", {})
+    first.finish_build(first.start_build())
+    assert "Used 42 registers" in first.build_log and first.library_path().exists()
+    again = _lib.Kernel("k", {})
+    assert again.start_build() is None                       # cached: no nvcc
+    assert again.build_log == first.build_log
+
+
 def _cc_operands(**over):
     """Keyword arguments of ``cuda_core_operand_error`` for a valid M = 8,
     [256, 384] block-128 product, with ``over`` replacing some."""
