@@ -15,6 +15,16 @@ import torch
 
 EPS = 1e-12
 PARTIAL_KEYS = ("sq_err", "n_sign_match", "dot", "dp_sq", "dq_sq", "count")
+_DEN = 2.0 ** -149   # the smallest float32 denormal
+
+
+def sign(x: torch.Tensor) -> torch.Tensor:
+    """The sign class of float32 ``x`` as ``jnp.sign`` compares it: -DEN,
+    ±0 or DEN for x < 0, x == 0, x > 0, and NaN for NaN, so a NaN matches
+    no sign.  (``torch.sign(nan)`` is 0, which would match a zero or NaN
+    delta.)  One pass, as ``torch.sign``: ``clamp`` keeps NaN, and every
+    nonzero float32 lies beyond the smallest denormal."""
+    return torch.clamp(x, -_DEN, _DEN)
 
 
 # ---------------------------------------------------------------------------
@@ -29,7 +39,7 @@ def mse(dp: torch.Tensor, dq: torch.Tensor) -> torch.Tensor:
 
 def sign_rate(dp: torch.Tensor, dq: torch.Tensor) -> torch.Tensor:
     """Eq. 8: fraction of elements whose delta sign is preserved (sign(0)=0)."""
-    return torch.mean((torch.sign(dp.float()) == torch.sign(dq.float())).float())
+    return torch.mean((sign(dp.float()) == sign(dq.float())).float())
 
 
 def cosine(dp: torch.Tensor, dq: torch.Tensor) -> torch.Tensor:
@@ -78,8 +88,7 @@ def partial_sums(dp: torch.Tensor, dq: torch.Tensor, axes) -> dict[str, torch.Te
     count = float(math.prod(dp.shape[a] for a in axes))
     return {
         "sq_err": sq_err,
-        "n_sign_match": torch.sum(torch.sign(dp) == torch.sign(dq), dim=axes,
-                                  dtype=torch.float32),
+        "n_sign_match": torch.sum(sign(dp) == sign(dq), dim=axes, dtype=torch.float32),
         "dot": torch.sum(dp * dq, dim=axes),
         "dp_sq": torch.sum(dp * dp, dim=axes),
         "dq_sq": torch.sum(dq * dq, dim=axes),

@@ -25,13 +25,30 @@ __device__ __forceinline__ float from_e4m3(uint8_t q) {
 
 __device__ __forceinline__ int sign_of(float x) { return (x > 0.f) - (x < 0.f); }
 
+// NaN-propagating max and min (PTX max.NaN / min.NaN, sm_80+): one
+// instruction each, like fmaxf / fminf, which return the non-NaN operand
+// instead.  The reference's jnp.max, jnp.maximum and jnp.clip, and the plain
+// versions' amax and clamp, keep a NaN.
+__device__ __forceinline__ float fmax_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float fmin_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
+// max over the warp, NaN if any lane holds one
 __device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1) v = fmax_nan(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 

@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.formats import f32_reciprocal
+from repro_torch.core.metrics import sign
 
 N_STATS = 8  # 5 used + 3 pad, as the reference kernel's output record
 
@@ -26,7 +27,7 @@ def sweep_partials_ref(wp: torch.Tensor, wb: torch.Tensor, amax: torch.Tensor,
     wp4 = wp.float().reshape(nbi, bs, nbo, bs)
     wb4 = wb.float().reshape(nbi, bs, nbo, bs)
     dp = wp4 - wb4
-    sign_dp = torch.sign(dp)
+    sign_dp = sign(dp)
     dp_sq = torch.sum(dp * dp, dim=(1, 3))
     out = torch.zeros((alphas.shape[0], nbi, nbo, N_STATS), dtype=torch.float32,
                       device=wp.device)
@@ -36,7 +37,7 @@ def sweep_partials_ref(wp: torch.Tensor, wb: torch.Tensor, amax: torch.Tensor,
         diff = dq - dp
         out[c, ..., 0] = torch.sum(diff * diff, dim=(1, 3))
         del diff
-        out[c, ..., 1] = torch.sum(sign_dp == torch.sign(dq), dim=(1, 3),
+        out[c, ..., 1] = torch.sum(sign_dp == sign(dq), dim=(1, 3),
                                    dtype=torch.float32)
         out[c, ..., 2] = torch.sum(dp * dq, dim=(1, 3))
         out[c, ..., 3] = dp_sq
