@@ -125,8 +125,8 @@ SCALE_SEARCH = Kernel("scale_search", {
     # wp, wb, amax, alphas, out, I, O, bs, n_cand, qmax, qmax_recip, stream
     "sweep_partials": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P)})
 FP8_QUANT = Kernel("fp8_quant", {
-    # w, alpha, q, scales, I, O, bs, qmax, qmax_recip, stream
-    "quantize_fp8": (_P, _P, _P, _P, _I, _I, _I, _F, _F, _P)})
+    # w, alpha, q, scales, I, O, bs, instance, qmax, qmax_recip, stream
+    "quantize_fp8": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _P)})
 FP8_MATMUL = Kernel("fp8_matmul", {
     # x, w, scales, y, scratch, M, K, N, bs, splits, kb_per_split, x_dtype, stream
     "matmul_fp8": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)})
