@@ -8,22 +8,28 @@ Phases:
   1. environment (torch / CUDA versions, card name, power limit and
      maximum SM clock);
   2. build the five CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
-     each, all at once); print each sweep instance's registers and spills
-     (none allowed) and its element loop's SASS instructions per element
-     and candidate (``cuobjdump``, where the toolkit has it);
+     each, all at once); print each quantizer and sweep instance's
+     registers and spills (none allowed) and the sweep's element loop's SASS
+     instructions per element and candidate (``cuobjdump``, where the
+     toolkit has it);
   3. check each kernel against its plain PyTorch version at the shapes of
      the main path, with the tolerance stated below, and time both; the
-     sweep also at 1, 16 and 20 candidates (two passes), blocks 64, 96,
-     256 and 66 and qmax 240 (the last two: the scalar-load instance), its
-     time beside the bound and the issue bound of its SASS; the fp8 matmul
-     has three routes (decode and prefill on the tensor cores for bf16 x
-     and block 128, the CUDA-core kernel for every other operand pair),
-     each checked, and all timed with cold weights on device time across
-     M, beside cuBLAS bf16;
+     quantizer also at blocks 64 and 66 and with w 4 bytes into its storage
+     (its general instance); the sweep also at 1, 16 and 20 candidates (two
+     passes), blocks 64, 96, 256 and 66 and qmax 240 (the last two: the
+     scalar-load instance), its time beside the bound and the issue bound
+     of its SASS; both on tiles holding NaN, +-inf and zeros against their
+     plain versions on the card and on the CPU; the fp8 matmul has three
+     routes (decode and prefill on the tensor cores for bf16 x and block
+     128, the CUDA-core kernel for every other operand pair), each checked,
+     and all timed with cold weights on device time across M, beside
+     cuBLAS bf16;
   4. make full-width GLM-4-9B weights from a seeded ``torch.Generator``
      (base = post + Gaussian noise at 1 % of each matrix's std);
   5. quantize: ``quantize(post, base, QuantConfig(use_fused_kernel=True),
-     mode="storage")``; print a hash of the chosen alphas;
+     mode="storage")``; print a hash of the chosen alphas and one of the
+     fp8 codes and scales (``--hashes-of SRC`` runs this phase alone with
+     another tree's package, to compare two trees in one call);
   6. serve 8 greedy requests (prompt 128, 64 generated tokens) through
      ``Engine(model, qparams, slots=8, k_steps=8)``;
   7. assert that every kernel launched on that quantize -> serve run, the
@@ -37,7 +43,7 @@ Phases:
   8. break one decode step, one prefill and one quantize (GLM-4-9B cut to
      4 layers at full width) down: host time, device busy time, kernel
      launches, the decode route's device time and the kernels that take
-     the device time.
+     the device time (the quantizer's always listed).
 
 It exits non-zero if any phase fails and when no CUDA device is present.
 The last line of stdout is the JSON object
@@ -92,18 +98,31 @@ def time_ms(torch, fn, reps: int) -> float:
 # ---------------------------------------------------------------------------
 
 SWEEP_INSTANCE = re.compile(r"sweep_kernelILi(\d+)ELi(\d+)E")
+QUANT_INSTANCE = re.compile(r"quant_(tile|general)_kernel")
 
 
-def sweep_resources(build_log: str) -> dict:
-    """``{(NC, V): (registers, spill store bytes, spill load bytes)}`` of
-    every sweep instance, from ``ptxas -v`` (an entry's lines follow its
-    "Compiling entry function" line)."""
+def sweep_instance(entry: str):
+    """(NC, V) of a sweep instance's mangled name, else None."""
+    inst = SWEEP_INSTANCE.search(entry)
+    return (int(inst.group(1)), int(inst.group(2))) if inst else None
+
+
+def quant_instance_of(entry: str):
+    """"tile" or "general" for a quantizer instance's mangled name, else None."""
+    inst = QUANT_INSTANCE.search(entry)
+    return inst.group(1) if inst else None
+
+
+def ptxas_resources(build_log: str, instance=sweep_instance) -> dict:
+    """``{instance(entry): (registers, spill store bytes, spill load bytes)}``
+    of every entry function that ``instance`` names (not None), from
+    ``ptxas -v`` (an entry's lines follow its "Compiling entry function"
+    line)."""
     found, cur = {}, None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            inst = SWEEP_INSTANCE.search(m.group(1))
-            cur = (int(inst.group(1)), int(inst.group(2))) if inst else None
+            cur = instance(m.group(1))
             continue
         if cur is None:
             continue
@@ -249,9 +268,6 @@ def check_sweeps(torch, weights, sass: dict | None, clock_mhz: float | None) -> 
 def check_kernels(torch, seed: int, sass: dict | None, clock_mhz: float | None) -> dict:
     """Each kernel at main-path shapes vs its plain version.  Returns the
     per-kernel record of the representative shape (others are logged)."""
-    from repro_torch.kernels.fp8_quant.kernel import quantize_fp8_cuda
-    from repro_torch.kernels.fp8_quant.ref import quantize_fp8_ref
-
     g = torch.Generator(device="cuda").manual_seed(seed)
     dev = "cuda"
     bs = 128
@@ -264,39 +280,154 @@ def check_kernels(torch, seed: int, sass: dict | None, clock_mhz: float | None) 
 
     records["scale_search"] = check_sweeps(torch, weights, sass, clock_mhz)
 
-    # -- fp8_quant: codes and scales bit-equal
-    for (I, O), main in (((4096, 13696), True), ((4096, 151552), False),
-                         ((256, 384), False)):
-        w, _ = weights(I, O)
-        alpha = torch.tensor([1.0375], device=dev)
-        run_k = lambda: quantize_fp8_cuda(w, alpha, block=bs)
-        run_p = lambda: quantize_fp8_ref(w, alpha, block=bs)
-        (qk, sk), (qp, sp) = run_k(), run_p()
-        torch.cuda.synchronize()
-        code_mismatch = int((qk.view(torch.uint8) != qp.view(torch.uint8)).sum())
-        scale_mismatch = int((sk != sp).sum())
-        deq = lambda q, s: q.float().reshape(I // bs, bs, O // bs, bs) * s[:, None, :, None]
-        max_err = float((deq(qk, sk) - deq(qp, sp)).abs().max())
-        ok = code_mismatch == 0 and scale_mismatch == 0
-        ms = time_ms(torch, run_k, 10)
-        plain_ms = time_ms(torch, run_p, 3)
-        b_ms, b_by = bound(I * O * 4 + I * O + (I // bs) * (O // bs) * 4 + 4, I * O * 4,
-                           FP32_FLOPS)
-        rec = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                   bound_by=b_by, library_ms=None)
-        log(f"kernel-check fp8_quant [{I},{O}]: {code_mismatch} code / {scale_mismatch} "
-            f"scale mismatches -> {'ok' if ok else 'FAIL'}; " + json.dumps(rec))
-        if not ok:
-            raise AssertionError(f"fp8_quant kernel disagrees at [{I},{O}]")
-        if main:
-            records["fp8_quant"] = rec
-        del w, qk, qp
+    quant = check_quantizer(torch, weights)
+    records["fp8_quant"] = quant[(4096, 13696, 128)]
+    check_nonfinite(torch)
 
     torch.cuda.empty_cache()
     records.update(check_matmul_routes(torch, g))
     crossover(torch, g)
     torch.cuda.empty_cache()
     return records
+
+
+# (I, O), block, timed: the main path's widest matrix [4096,13696] (the
+# record) and the LM head, a small width (the register-tile instance); blocks
+# 64 and 66 (the general instance)
+QUANT_CASES = (((4096, 13696), 128, True), ((4096, 151552), 128, True),
+               ((256, 384), 128, True), ((512, 384), 64, False), ((396, 330), 66, False))
+
+
+def codes_differ(torch, a, b) -> int:
+    """E4M3 codes of ``a`` and ``b`` that differ, a NaN code (0x7F or 0xFF:
+    the sign of a NaN is not defined across implementations) equal to a NaN."""
+    a, b = a.view(torch.uint8), b.view(torch.uint8)
+    both_nan = ((a & 0x7F) == 0x7F) & ((b & 0x7F) == 0x7F)
+    return int(((a != b) & ~both_nan).sum())
+
+
+def floats_differ(torch, a, b) -> int:
+    """float32 values of ``a`` and ``b`` whose bits differ, a NaN equal to a NaN."""
+    return int(((a.view(torch.int32) != b.view(torch.int32)) & ~(a.isnan() & b.isnan())).sum())
+
+
+def check_quantizer(torch, weights) -> dict:
+    """The quantizer against its plain version: codes and scales bit-equal.
+    Timed cases: CUDA-event mean of back-to-back launches (w is over the 50
+    MB L2 at the two main widths).  Then w as a view 4 bytes into its
+    storage (the general instance).  Returns ``{(I, O, block): record}`` of
+    the timed cases."""
+    from repro_torch.kernels.fp8_quant.kernel import quant_instance, quantize_fp8_cuda
+    from repro_torch.kernels.fp8_quant.ref import quantize_fp8_ref
+    alpha = torch.tensor([1.0375], device="cuda")
+    records = {}
+    for (I, O), bs, timed in (*QUANT_CASES, ((256, 384), 128, "offset")):
+        w, _ = weights(I, O)
+        if timed == "offset":
+            w = torch.cat([torch.zeros(1, device="cuda"), w.reshape(-1)])[1:].view(I, O)
+        run_k = lambda: quantize_fp8_cuda(w, alpha, block=bs)
+        run_p = lambda: quantize_fp8_ref(w, alpha, block=bs)
+        (qk, sk), (qp, sp) = run_k(), run_p()
+        torch.cuda.synchronize()
+        n_codes, n_scales = codes_differ(torch, qk, qp), floats_differ(torch, sk, sp)
+        deq = lambda q, s: q.float().reshape(I // bs, bs, O // bs, bs) * s[:, None, :, None]
+        rec = dict(max_abs_err=float((deq(qk, sk) - deq(qp, sp)).abs().max()))
+        if timed is True:
+            b_ms, b_by = bound(I * O * 4 + I * O + (I // bs) * (O // bs) * 4 + 4, I * O * 4,
+                               FP32_FLOPS)
+            rec.update(ms=time_ms(torch, run_k, 10), plain_ms=time_ms(torch, run_p, 3),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        ok = n_codes == 0 and n_scales == 0
+        log(f"kernel-check fp8_quant [{I},{O}] block {bs} ({quant_instance(bs, w.data_ptr())} "
+            f"instance{', w 4 bytes into its storage' if timed == 'offset' else ''}): "
+            f"{n_codes} code / {n_scales} scale mismatches -> {'ok' if ok else 'FAIL'}; "
+            + json.dumps(rec))
+        if not ok:
+            raise AssertionError(f"fp8_quant kernel disagrees at [{I},{O}] block {bs}")
+        if timed is True:
+            records[(I, O, bs)] = rec
+        del w, qk, qp
+    torch.cuda.empty_cache()
+    return records
+
+
+DEN = 2.0 ** -149   # the smallest float32 denormal
+
+
+def nonfinite_pair(torch, bs: int):
+    """wp, wb [2 bs, 3 bs] on the card: tile (0, 0) a NaN in wp, (0, 1) +inf,
+    (0, 2) -inf, (1, 0) zero but for a denormal delta of each sign (the
+    1e-12 floor), (1, 1) +inf and -inf, (1, 2) a NaN in wb only."""
+    g = torch.Generator(device="cuda").manual_seed(bs)
+    wb = torch.randn((2 * bs, 3 * bs), generator=g, device="cuda") * 0.05
+    wp = wb + torch.randn(wb.shape, generator=g, device="cuda") * 0.002
+    wp[3, 5] = math.nan
+    wp[7, bs + 9] = math.inf
+    wp[bs - 1, 2 * bs] = -math.inf
+    wp[bs:, :bs] = 0.0
+    wb[bs:, :bs] = 0.0
+    wp[bs + 1, 1], wb[bs + 2, 2] = DEN, -DEN
+    wp[bs + 1, bs + 1], wp[bs + 4, 2 * bs - 1] = math.inf, -math.inf
+    wb[bs + 2, 2 * bs + 3] = math.nan
+    return wp, wb
+
+
+def sums_agree(torch, k, p) -> bool:
+    """fp32 sums: NaN and +-inf where the plain version has them, else
+    |err| <= 1e-4 |plain| + 1e-6 max |plain| (sums in another order)."""
+    fin = torch.isfinite(p)
+    if not (torch.equal(torch.isnan(k), torch.isnan(p)) and torch.equal(torch.isfinite(k), fin)
+            and torch.equal(k[torch.isinf(p)], p[torch.isinf(p)])):
+        return False
+    k, p = k[fin], p[fin]
+    return bool(((k - p).abs() <= 1e-4 * p.abs() + 1e-6 * p.abs().max()).all())
+
+
+def check_nonfinite(torch) -> None:
+    """The quantize path's kernels on tiles holding NaN, +-inf and zeros
+    (``nonfinite_pair``) against their plain versions on the card and on the
+    CPU: the quantizer's codes and scales bit-equal (NaN as NaN); the sweep's
+    sign counts equal and its other sums NaN and inf where the plain
+    version's are (``sums_agree``).  Blocks 128 (the register-tile quantizer,
+    the float4 sweep), 64 and 66 (the general quantizer; 66 the scalar
+    sweep), and qmax 240 (the scalar sweep, which clips above too)."""
+    from repro_torch.core.search import linspace
+    from repro_torch.kernels.fp8_quant.kernel import quant_instance, quantize_fp8_cuda
+    from repro_torch.kernels.fp8_quant.ref import quantize_fp8_ref
+    from repro_torch.kernels.scale_search.kernel import sweep_partials_cuda
+    from repro_torch.kernels.scale_search.ref import sweep_partials_ref
+    alpha = torch.tensor([1.0375], device="cuda")
+    alphas = torch.cat([torch.ones(1, device="cuda"), linspace(0.8, 1.25, 10, "cuda")])
+    for bs, qmax in ((128, 448.0), (64, 448.0), (66, 448.0), (128, 240.0)):
+        wp, wb = nonfinite_pair(torch, bs)
+        cpu = lambda t: t.cpu()
+        if qmax == 448.0:
+            (qk, sk), (qp, sp) = quantize_fp8_cuda(wp, alpha, block=bs), \
+                quantize_fp8_ref(wp, alpha, block=bs)
+            qc, sc = quantize_fp8_ref(cpu(wp), cpu(alpha), block=bs)
+            n_q = codes_differ(torch, qk, qp) + codes_differ(torch, qk.cpu(), qc)
+            n_s = floats_differ(torch, sk, sp) + floats_differ(torch, sk.cpu(), sc)
+            ok = n_q == 0 and n_s == 0 and bool(sk[0, 0].isnan()) and bool(sk[0, 1:].isinf().all())
+            log(f"kernel-check fp8_quant non-finite tiles block {bs} "
+                f"({quant_instance(bs, wp.data_ptr())} instance): scales "
+                f"{sk.flatten().tolist()}; {n_q} code / {n_s} scale mismatches against the "
+                f"plain version on the card and the CPU -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"fp8_quant kernel disagrees on non-finite tiles, block {bs}")
+        amax = wp.reshape(2, bs, 3, bs).abs().amax(dim=(1, 3)).clamp_min(1e-12)
+        pk = sweep_partials_cuda(wp, wb, amax, alphas, block_size=bs, qmax=qmax)
+        pp = sweep_partials_ref(wp, wb, amax, alphas, block_size=bs, qmax=qmax)
+        pc = sweep_partials_ref(cpu(wp), cpu(wb), cpu(amax), cpu(alphas), block_size=bs,
+                                qmax=qmax)
+        torch.cuda.synchronize()
+        signs = (pk[..., 1] != pp[..., 1]).sum().item() + (pk[..., 1].cpu() != pc[..., 1]).sum().item()
+        ok = signs == 0 and all(sums_agree(torch, pk[..., i], pp[..., i]) for i in (0, 2, 3, 4))
+        log(f"kernel-check scale_search non-finite tiles block {bs} qmax {qmax:g}: sign counts "
+            f"of tile (0,0) {pk[:, 0, 0, 1].tolist()[:3]}..., {signs} sign-count mismatches "
+            f"against the plain version on the card and the CPU -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"scale_search kernel disagrees on non-finite tiles, block {bs}"
+                                 f" qmax {qmax:g}")
 
 
 COLD_BYTES = 128 << 20   # weight copies rotated per timing: well over the 50 MB L2
@@ -733,8 +864,8 @@ def main_path(torch, args, records: dict) -> None:
     log(f"quantize: {quant_s:.2f} s for {report.n_quantized} tensors "
         f"({report.original_bytes / 1e9:.2f} GB bf16 -> {report.quantized_bytes / 1e9:.2f} GB), "
         f"peak {quant_peak:.2f} GB")
-    log(f"quantize: chosen-alpha hash {alpha_hash(report)} over {leaf_layers(report)} "
-        f"leaf-layers")
+    log(f"quantize: chosen-alpha hash {alpha_hash(report)}, code-and-scale hash "
+        f"{code_hash(torch, qparams)} over {leaf_layers(report)} leaf-layers")
     dec_tokens = stats["counters"]["tokens"]
     log(f"serve: {len(outputs)} requests x {GEN} tokens in {serve_s:.2f} s "
         f"({SLOTS * GEN / serve_s:.1f} tok/s end to end); prefill {stats['prefill_s']:.3f} s "
@@ -785,11 +916,13 @@ def main_path(torch, args, records: dict) -> None:
     breakdowns(torch, model, qparams, torch.stack(requests))
 
 
-def device_breakdown(torch, label: str, run, per: int, unit: str, top: int = 8) -> None:
+def device_breakdown(torch, label: str, run, per: int, unit: str, top: int = 8,
+                     always: tuple[str, ...] = ()) -> None:
     """Host time of ``run()`` (which ends in a synchronize) without the
     profiler, then one ``torch.profiler`` window over another ``run()`` for
-    the device's busy time, its kernel launches and the kernels by time;
-    everything per ``unit`` (``run`` does ``per`` of them)."""
+    the device's busy time, its kernel launches and the kernels by time
+    (the ``top`` ones, and every one whose name holds a string of
+    ``always``); everything per ``unit`` (``run`` does ``per`` of them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -820,8 +953,10 @@ def device_breakdown(torch, label: str, run, per: int, unit: str, top: int = 8) 
         log(f"{label} breakdown: fp8 decode route (decode_kernel + its split sum) "
             f"{sum(t for _, t in route) / per:.3f} ms per {unit} on the device, "
             f"{sum(n for n, _ in route) / per:.0f} kernel launches per {unit}")
-    for name, (n, t) in sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]:
-        log(f"  {t / per:8.3f} ms/{unit}  {n / per:6.0f} launches/{unit}  {name[:90]}")
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])
+    for i, (name, (n, t)) in enumerate(ranked):
+        if i < top or any(a in name for a in always):
+            log(f"  {t / per:8.3f} ms/{unit}  {n / per:6.0f} launches/{unit}  {name[:90]}")
 
 
 def breakdowns(torch, model, qparams, prompts, steps: int = 8) -> None:
@@ -864,6 +999,36 @@ def alpha_hash(report) -> str:
     return h.hexdigest()[:16]
 
 
+def weighted_sums(torch, flat, *, codes: bool = False, chunk: int = 1 << 26):
+    """Per chunk of the 1-D integer tensor ``flat``, on its device: the sum
+    of each element times its position within the chunk modulo 251, plus
+    one, in int64 (below 2^63 for 32-bit elements).  ``codes``: E4M3 codes,
+    a NaN (0x7F or 0xFF: its sign is not defined) counted as 0x7F."""
+    for start in range(0, flat.numel(), chunk):
+        c = flat[start:start + chunk].to(torch.int64)
+        if codes:
+            c = torch.where((c & 0x7F) == 0x7F, 0x7F, c)
+        pos = torch.arange(c.numel(), device=c.device, dtype=torch.int64).remainder_(251).add_(1)
+        yield int((c * pos).sum())
+
+
+def code_hash(torch, qparams) -> str:
+    """sha256 (first 16 hex digits) over every quantized leaf (by path) of
+    the position-weighted sums (``weighted_sums``) of its fp8 codes and of
+    its scales' bits, computed on the card: the full-width codes are 9.4 GB."""
+    from repro_torch.core.policy import tree_leaves_with_path
+    h = hashlib.sha256()
+    for path, leaf in tree_leaves_with_path(qparams):
+        if not hasattr(leaf, "granularity"):
+            continue
+        h.update("/".join(path).encode())
+        for part, codes in ((leaf.data.view(torch.uint8).reshape(-1), True),
+                            (leaf.scale.contiguous().view(torch.int32).reshape(-1), False)):
+            for v in weighted_sums(torch, part, codes=codes):
+                h.update(v.to_bytes(8, "little", signed=True))
+    return h.hexdigest()[:16]
+
+
 def quantize_breakdown(torch, seed: int, layers: int = 4) -> None:
     """Where one quantize goes: GLM-4-9B at full width cut to ``layers``
     layers (the embedding and the LM head included, weights as phase 4),
@@ -888,9 +1053,71 @@ def quantize_breakdown(torch, seed: int, layers: int = 4) -> None:
     log(f"quantize breakdown: {cfg.name}, {layers} layers at full width, {n} leaf-layers "
         f"({report.original_bytes / 1e9:.2f} GB bf16): {time.perf_counter() - t0:.3f} s a "
         f"quantize on the host clock")
-    device_breakdown(torch, f"quantize ({layers} layers)", run, n, "leaf-layer", top=12)
+    device_breakdown(torch, f"quantize ({layers} layers)", run, n, "leaf-layer", top=12,
+                     always=("quant_tile_kernel", "quant_general_kernel"))
     del post, base
     torch.cuda.empty_cache()
+
+
+def build_and_report() -> dict | None:
+    """Phase 2: build every kernel library; print the registers and spills
+    of each quantizer and sweep instance (failing on a spill) and the
+    sweep's element-loop SASS.  Returns ``sweep_sass``'s result."""
+    from repro_torch.kernels import _lib
+    t0 = time.perf_counter()
+    _lib.build_all()
+    log(f"built {len(_lib.KERNELS)} kernel libraries in {time.perf_counter() - t0:.1f} s")
+    for k in _lib.KERNELS:
+        if k in (_lib.SCALE_SEARCH, _lib.FP8_QUANT):
+            continue
+        for line in k.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {k.name}: {line.strip()}")
+    # the quantizer's two instances and the sweep's: registers and spills
+    # (ptxas); the sweep's element loop in SASS (one row step: V elements x
+    # NC candidates)
+    quant = ptxas_resources(_lib.FP8_QUANT.build_log, quant_instance_of)
+    for inst, (regs, st, ld) in sorted(quant.items()):
+        log(f"  fp8_quant {inst}: {regs} registers, spill stores {st} B, spill loads {ld} B")
+    if sorted(quant) != ["general", "tile"]:
+        raise AssertionError(f"ptxas reported the quantizer instances {sorted(quant)}")
+    if any(st or ld for _, st, ld in quant.values()):
+        raise AssertionError("a quantizer instance spills registers")
+    resources = ptxas_resources(_lib.SCALE_SEARCH.build_log)
+    sass = sweep_sass(_lib.SCALE_SEARCH.library_path(), Path(_lib.nvcc()).parent / "cuobjdump")
+    for (nc, v), (regs, st, ld) in sorted(resources.items()):
+        loop = (sass or {}).get((nc, v))
+        mix = ", ".join(f"{op} {c}" for op, c in
+                        sorted(loop[1].items(), key=lambda kv: -kv[1])[:10]) if loop else ""
+        log(f"  scale_search NC={nc:2d} V={v}: {regs} registers, spill stores {st} B, "
+            f"spill loads {ld} B; element loop "
+            + (f"{loop[0]} SASS instructions = {loop[0] / (nc * v):.1f} per element and "
+               f"candidate ({mix})" if loop else "not measured (no cuobjdump)"))
+    if not resources:
+        raise AssertionError("ptxas reported no sweep instance")
+    if any(st or ld for _, st, ld in resources.values()):
+        raise AssertionError("a sweep instance spills registers")
+    return sass
+
+
+def tree_hashes(torch, args, src: Path) -> None:
+    """Phase 5 alone for the package under ``src``: quantize the model made
+    by this script's ``make_weights`` and print both hashes, so two trees'
+    quantizes compare in one call."""
+    from repro_torch.configs import QuantConfig, get_arch
+    from repro_torch.kernels import _lib
+    from repro_torch.models import build_model
+    from repro_torch.quantize import quantize
+    _lib.build_all()
+    cfg = dataclasses.replace(get_arch("glm4-9b"), n_layers=args.layers)
+    post, base = make_weights(torch, build_model(cfg), args.seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qparams, report = quantize(post, base, QuantConfig(use_fused_kernel=True), mode="storage")
+    torch.cuda.synchronize()
+    log(f"quantize with {src}: {time.perf_counter() - t0:.2f} s; chosen-alpha hash "
+        f"{alpha_hash(report)}, code-and-scale hash {code_hash(torch, qparams)} over "
+        f"{leaf_layers(report)} leaf-layers")
 
 
 def main() -> int:
@@ -898,6 +1125,9 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=40,
                     help="model depth (default: GLM-4-9B's 40)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--hashes-of", metavar="SRC",
+                    help="only quantize the model with the repro_torch package under SRC "
+                         "(another tree's src/) and print phase 5's hashes of it")
     args = ap.parse_args()
 
     import torch
@@ -905,7 +1135,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    src = Path(__file__).resolve().parent / "src"
+    src = Path(args.hashes_of or Path(__file__).resolve().parent / "src").resolve()
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: {src}/repro_torch not found; run from a checkout of the repo",
               file=sys.stderr)
@@ -927,34 +1157,12 @@ def main() -> int:
                            timeout=60).stdout.strip().splitlines()
     clock_mhz = float(clock[0]) if clock and clock[0].strip().isdigit() else None
     log(f"maximum SM clock: {clock_mhz} MHz")
+    if args.hashes_of:
+        tree_hashes(torch, args, src)
+        return 0
 
     # 2. build
-    from repro_torch.kernels import _lib
-    t0 = time.perf_counter()
-    _lib.build_all()
-    log(f"built {len(_lib.KERNELS)} kernel libraries in {time.perf_counter() - t0:.1f} s")
-    for k in _lib.KERNELS:
-        if k is _lib.SCALE_SEARCH:
-            continue
-        for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {k.name}: {line.strip()}")
-    # the sweep's instances: registers and spills (ptxas), and the SASS
-    # instructions of the element loop (one row step: V elements x NC candidates)
-    resources = sweep_resources(_lib.SCALE_SEARCH.build_log)
-    sass = sweep_sass(_lib.SCALE_SEARCH.library_path(), Path(_lib.nvcc()).parent / "cuobjdump")
-    for (nc, v), (regs, st, ld) in sorted(resources.items()):
-        loop = (sass or {}).get((nc, v))
-        mix = ", ".join(f"{op} {c}" for op, c in
-                        sorted(loop[1].items(), key=lambda kv: -kv[1])[:10]) if loop else ""
-        log(f"  scale_search NC={nc:2d} V={v}: {regs} registers, spill stores {st} B, "
-            f"spill loads {ld} B; element loop "
-            + (f"{loop[0]} SASS instructions = {loop[0] / (nc * v):.1f} per element and "
-               f"candidate ({mix})" if loop else "not measured (no cuobjdump)"))
-    if not resources:
-        raise AssertionError("ptxas reported no sweep instance")
-    if any(st or ld for _, st, ld in resources.values()):
-        raise AssertionError("a sweep instance spills registers")
+    sass = build_and_report()
 
     # 3. kernels vs plain versions
     t0 = time.perf_counter()
