@@ -184,6 +184,47 @@ def sweep_loops(text: str) -> dict:
     return out
 
 
+def build_and_report() -> dict | None:
+    """Phase 2: build every kernel library; print the registers and spills
+    of each quantizer and sweep instance (failing on a spill) and the
+    sweep's element-loop SASS.  Returns ``sweep_sass``'s result."""
+    from repro_torch.kernels import _lib
+    t0 = time.perf_counter()
+    _lib.build_all()
+    log(f"built {len(_lib.KERNELS)} kernel libraries in {time.perf_counter() - t0:.1f} s")
+    for k in _lib.KERNELS:
+        if k in (_lib.SCALE_SEARCH, _lib.FP8_QUANT):
+            continue
+        for line in k.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {k.name}: {line.strip()}")
+    # the quantizer's two instances and the sweep's: registers and spills
+    # (ptxas); the sweep's element loop in SASS (one row step: V elements x
+    # NC candidates)
+    quant = ptxas_resources(_lib.FP8_QUANT.build_log, quant_instance_of)
+    for inst, (regs, st, ld) in sorted(quant.items()):
+        log(f"  fp8_quant {inst}: {regs} registers, spill stores {st} B, spill loads {ld} B")
+    if sorted(quant) != ["general", "tile"]:
+        raise AssertionError(f"ptxas reported the quantizer instances {sorted(quant)}")
+    if any(st or ld for _, st, ld in quant.values()):
+        raise AssertionError("a quantizer instance spills registers")
+    resources = ptxas_resources(_lib.SCALE_SEARCH.build_log)
+    sass = sweep_sass(_lib.SCALE_SEARCH.library_path(), Path(_lib.nvcc()).parent / "cuobjdump")
+    for (nc, v), (regs, st, ld) in sorted(resources.items()):
+        loop = (sass or {}).get((nc, v))
+        mix = ", ".join(f"{op} {c}" for op, c in
+                        sorted(loop[1].items(), key=lambda kv: -kv[1])[:10]) if loop else ""
+        log(f"  scale_search NC={nc:2d} V={v}: {regs} registers, spill stores {st} B, "
+            f"spill loads {ld} B; element loop "
+            + (f"{loop[0]} SASS instructions = {loop[0] / (nc * v):.1f} per element and "
+               f"candidate ({mix})" if loop else "not measured (no cuobjdump)"))
+    if not resources:
+        raise AssertionError("ptxas reported no sweep instance")
+    if any(st or ld for _, st, ld in resources.values()):
+        raise AssertionError("a sweep instance spills registers")
+    return sass
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -291,11 +332,13 @@ def check_kernels(torch, seed: int, sass: dict | None, clock_mhz: float | None) 
     return records
 
 
-# (I, O), block, timed: the main path's widest matrix [4096,13696] (the
-# record) and the LM head, a small width (the register-tile instance); blocks
-# 64 and 66 (the general instance)
-QUANT_CASES = (((4096, 13696), 128, True), ((4096, 151552), 128, True),
-               ((256, 384), 128, True), ((512, 384), 64, False), ((396, 330), 66, False))
+# (I, O), block, timed, offset: the main path's widest matrix [4096,13696]
+# (the record) and the LM head, a small width (the register-tile instance);
+# then w one float into its storage, and blocks 64 and 66 (the general
+# instance)
+QUANT_CASES = (((4096, 13696), 128, True, 0), ((4096, 151552), 128, True, 0),
+               ((256, 384), 128, True, 0), ((256, 384), 128, False, 1),
+               ((512, 384), 64, False, 0), ((396, 330), 66, False, 0))
 
 
 def codes_differ(torch, a, b) -> int:
@@ -312,19 +355,18 @@ def floats_differ(torch, a, b) -> int:
 
 
 def check_quantizer(torch, weights) -> dict:
-    """The quantizer against its plain version: codes and scales bit-equal.
-    Timed cases: CUDA-event mean of back-to-back launches (w is over the 50
-    MB L2 at the two main widths).  Then w as a view 4 bytes into its
-    storage (the general instance).  Returns ``{(I, O, block): record}`` of
-    the timed cases."""
+    """The quantizer against its plain version (``QUANT_CASES``): codes and
+    scales bit-equal.  Timed cases: CUDA-event mean of back-to-back launches
+    (w is over the 50 MB L2 at the two main widths).  Returns
+    ``{(I, O, block): record}`` of the timed cases."""
     from repro_torch.kernels.fp8_quant.kernel import quant_instance, quantize_fp8_cuda
     from repro_torch.kernels.fp8_quant.ref import quantize_fp8_ref
     alpha = torch.tensor([1.0375], device="cuda")
     records = {}
-    for (I, O), bs, timed in (*QUANT_CASES, ((256, 384), 128, "offset")):
+    for (I, O), bs, timed, offset in QUANT_CASES:
         w, _ = weights(I, O)
-        if timed == "offset":
-            w = torch.cat([torch.zeros(1, device="cuda"), w.reshape(-1)])[1:].view(I, O)
+        if offset:
+            w = torch.cat([torch.zeros(offset, device="cuda"), w.reshape(-1)])[offset:].view(I, O)
         run_k = lambda: quantize_fp8_cuda(w, alpha, block=bs)
         run_p = lambda: quantize_fp8_ref(w, alpha, block=bs)
         (qk, sk), (qp, sp) = run_k(), run_p()
@@ -332,19 +374,19 @@ def check_quantizer(torch, weights) -> dict:
         n_codes, n_scales = codes_differ(torch, qk, qp), floats_differ(torch, sk, sp)
         deq = lambda q, s: q.float().reshape(I // bs, bs, O // bs, bs) * s[:, None, :, None]
         rec = dict(max_abs_err=float((deq(qk, sk) - deq(qp, sp)).abs().max()))
-        if timed is True:
+        if timed:
             b_ms, b_by = bound(I * O * 4 + I * O + (I // bs) * (O // bs) * 4 + 4, I * O * 4,
                                FP32_FLOPS)
             rec.update(ms=time_ms(torch, run_k, 10), plain_ms=time_ms(torch, run_p, 3),
                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
         ok = n_codes == 0 and n_scales == 0
         log(f"kernel-check fp8_quant [{I},{O}] block {bs} ({quant_instance(bs, w.data_ptr())} "
-            f"instance{', w 4 bytes into its storage' if timed == 'offset' else ''}): "
+            f"instance{f', w {4 * offset} bytes into its storage' if offset else ''}): "
             f"{n_codes} code / {n_scales} scale mismatches -> {'ok' if ok else 'FAIL'}; "
             + json.dumps(rec))
         if not ok:
             raise AssertionError(f"fp8_quant kernel disagrees at [{I},{O}] block {bs}")
-        if timed is True:
+        if timed:
             records[(I, O, bs)] = rec
         del w, qk, qp
     torch.cuda.empty_cache()
@@ -400,11 +442,10 @@ def check_nonfinite(torch) -> None:
     alphas = torch.cat([torch.ones(1, device="cuda"), linspace(0.8, 1.25, 10, "cuda")])
     for bs, qmax in ((128, 448.0), (64, 448.0), (66, 448.0), (128, 240.0)):
         wp, wb = nonfinite_pair(torch, bs)
-        cpu = lambda t: t.cpu()
         if qmax == 448.0:
             (qk, sk), (qp, sp) = quantize_fp8_cuda(wp, alpha, block=bs), \
                 quantize_fp8_ref(wp, alpha, block=bs)
-            qc, sc = quantize_fp8_ref(cpu(wp), cpu(alpha), block=bs)
+            qc, sc = quantize_fp8_ref(wp.cpu(), alpha.cpu(), block=bs)
             n_q = codes_differ(torch, qk, qp) + codes_differ(torch, qk.cpu(), qc)
             n_s = floats_differ(torch, sk, sp) + floats_differ(torch, sk.cpu(), sc)
             ok = n_q == 0 and n_s == 0 and bool(sk[0, 0].isnan()) and bool(sk[0, 1:].isinf().all())
@@ -417,7 +458,7 @@ def check_nonfinite(torch) -> None:
         amax = wp.reshape(2, bs, 3, bs).abs().amax(dim=(1, 3)).clamp_min(1e-12)
         pk = sweep_partials_cuda(wp, wb, amax, alphas, block_size=bs, qmax=qmax)
         pp = sweep_partials_ref(wp, wb, amax, alphas, block_size=bs, qmax=qmax)
-        pc = sweep_partials_ref(cpu(wp), cpu(wb), cpu(amax), cpu(alphas), block_size=bs,
+        pc = sweep_partials_ref(wp.cpu(), wb.cpu(), amax.cpu(), alphas.cpu(), block_size=bs,
                                 qmax=qmax)
         torch.cuda.synchronize()
         signs = (pk[..., 1] != pp[..., 1]).sum().item() + (pk[..., 1].cpu() != pc[..., 1]).sum().item()
@@ -1057,47 +1098,6 @@ def quantize_breakdown(torch, seed: int, layers: int = 4) -> None:
                      always=("quant_tile_kernel", "quant_general_kernel"))
     del post, base
     torch.cuda.empty_cache()
-
-
-def build_and_report() -> dict | None:
-    """Phase 2: build every kernel library; print the registers and spills
-    of each quantizer and sweep instance (failing on a spill) and the
-    sweep's element-loop SASS.  Returns ``sweep_sass``'s result."""
-    from repro_torch.kernels import _lib
-    t0 = time.perf_counter()
-    _lib.build_all()
-    log(f"built {len(_lib.KERNELS)} kernel libraries in {time.perf_counter() - t0:.1f} s")
-    for k in _lib.KERNELS:
-        if k in (_lib.SCALE_SEARCH, _lib.FP8_QUANT):
-            continue
-        for line in k.build_log.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {k.name}: {line.strip()}")
-    # the quantizer's two instances and the sweep's: registers and spills
-    # (ptxas); the sweep's element loop in SASS (one row step: V elements x
-    # NC candidates)
-    quant = ptxas_resources(_lib.FP8_QUANT.build_log, quant_instance_of)
-    for inst, (regs, st, ld) in sorted(quant.items()):
-        log(f"  fp8_quant {inst}: {regs} registers, spill stores {st} B, spill loads {ld} B")
-    if sorted(quant) != ["general", "tile"]:
-        raise AssertionError(f"ptxas reported the quantizer instances {sorted(quant)}")
-    if any(st or ld for _, st, ld in quant.values()):
-        raise AssertionError("a quantizer instance spills registers")
-    resources = ptxas_resources(_lib.SCALE_SEARCH.build_log)
-    sass = sweep_sass(_lib.SCALE_SEARCH.library_path(), Path(_lib.nvcc()).parent / "cuobjdump")
-    for (nc, v), (regs, st, ld) in sorted(resources.items()):
-        loop = (sass or {}).get((nc, v))
-        mix = ", ".join(f"{op} {c}" for op, c in
-                        sorted(loop[1].items(), key=lambda kv: -kv[1])[:10]) if loop else ""
-        log(f"  scale_search NC={nc:2d} V={v}: {regs} registers, spill stores {st} B, "
-            f"spill loads {ld} B; element loop "
-            + (f"{loop[0]} SASS instructions = {loop[0] / (nc * v):.1f} per element and "
-               f"candidate ({mix})" if loop else "not measured (no cuobjdump)"))
-    if not resources:
-        raise AssertionError("ptxas reported no sweep instance")
-    if any(st or ld for _, st, ld in resources.values()):
-        raise AssertionError("a sweep instance spills registers")
-    return sass
 
 
 def tree_hashes(torch, args, src: Path) -> None:

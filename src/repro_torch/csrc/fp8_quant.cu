@@ -25,8 +25,9 @@
 // __fdiv_rn, not a reciprocal multiply: the codes are then bit-equal to the
 // plain version's), the clip, then two codes per cvt.rn.satfinite.e4m3x2
 // and four packed into one 32-bit streaming store, so a warp writes a whole
-// 128-byte row segment per store.  ~90 registers a thread: 2 tiles an SM,
-// ~17 MB of loads in flight on the card, far more than HBM's latency needs.
+// 128-byte row segment per store.  84 registers a thread (ptxas): 2 tiles
+// an SM, ~17 MB of loads in flight on the card, far more than HBM's latency
+// needs; 3 tiles an SM and 512-thread blocks ran no faster.
 //
 // quant_general_kernel (any other block, or an unaligned w): one thread
 // block per block, scalar loads, the absmax pass, then the cast re-reading
