@@ -28,8 +28,8 @@ Phases:
      (base = post + Gaussian noise at 1 % of each matrix's std);
   5. quantize: ``quantize(post, base, QuantConfig(use_fused_kernel=True),
      mode="storage")``; print a hash of the chosen alphas and one of the
-     fp8 codes and scales (``--hashes-of SRC`` runs this phase alone with
-     another tree's package, to compare two trees in one call);
+     fp8 codes and scales (``tree_readings`` gives both for another tree's
+     package, to compare two trees in one call);
   6. serve 8 greedy requests (prompt 128, 64 generated tokens) through
      ``Engine(model, qparams, slots=8, k_steps=8)``;
   7. assert that every kernel launched on that quantize -> serve run, the
@@ -356,8 +356,10 @@ def floats_differ(torch, a, b) -> int:
 
 def check_quantizer(torch, weights) -> dict:
     """The quantizer against its plain version (``QUANT_CASES``): codes and
-    scales bit-equal.  Timed cases: CUDA-event mean of back-to-back launches
-    (w is over the 50 MB L2 at the two main widths).  Returns
+    scales bit-equal.  Timed cases: device time (``device_ms``, as the
+    matmul: the profiler's kernel durations, copies of w together over the
+    L2) as ``ms``, beside the CUDA-event mean of 10 back-to-back wrapper
+    calls (``event_ms``, the method of PR 17's record).  Returns
     ``{(I, O, block): record}`` of the timed cases."""
     from repro_torch.kernels.fp8_quant.kernel import quant_instance, quantize_fp8_cuda
     from repro_torch.kernels.fp8_quant.ref import quantize_fp8_ref
@@ -377,8 +379,12 @@ def check_quantizer(torch, weights) -> dict:
         if timed:
             b_ms, b_by = bound(I * O * 4 + I * O + (I // bs) * (O // bs) * 4 + 4, I * O * 4,
                                FP32_FLOPS)
-            rec.update(ms=time_ms(torch, run_k, 10), plain_ms=time_ms(torch, run_p, 3),
+            copies = [w] + [w.clone() for _ in range(-(-COLD_BYTES // (4 * I * O)) - 1)]
+            rec.update(ms=device_ms(torch, [lambda c=c: quantize_fp8_cuda(c, alpha, block=bs)
+                                            for c in copies]),
+                       event_ms=time_ms(torch, run_k, 10), plain_ms=time_ms(torch, run_p, 3),
                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            del copies
         ok = n_codes == 0 and n_scales == 0
         log(f"kernel-check fp8_quant [{I},{O}] block {bs} ({quant_instance(bs, w.data_ptr())} "
             f"instance{f', w {4 * offset} bytes into its storage' if offset else ''}): "
@@ -1040,22 +1046,30 @@ def alpha_hash(report) -> str:
     return h.hexdigest()[:16]
 
 
-def weighted_sums(torch, flat, *, codes: bool = False, chunk: int = 1 << 26):
-    """Per chunk of the 1-D integer tensor ``flat``, on its device: the sum
-    of each element times its position within the chunk modulo 251, plus
-    one, in int64 (below 2^63 for 32-bit elements).  ``codes``: E4M3 codes,
-    a NaN (0x7F or 0xFF: its sign is not defined) counted as 0x7F."""
+HASH_MUL = 0x9E3779B97F4A7C15 - (1 << 64)   # odd: 2^64 / golden ratio, as int64
+
+
+def weighted_sum(torch, flat, *, codes: bool = False, chunk: int = 1 << 26) -> int:
+    """Sum, modulo 2^64, of each element of the 1-D integer tensor ``flat``
+    times the odd 64-bit weight (2 p + 1) * ``HASH_MUL`` of its position p,
+    computed on its device (int64 products and sums wrap).  Two elements
+    that change places change the sum by (a - b) * 2 (p - q) * HASH_MUL,
+    which is not 0 modulo 2^64 for |a - b| < 2^32 and |p - q| < 2^31: a
+    permutation does not cancel.  ``codes``: E4M3 codes, a NaN (0x7F or
+    0xFF: its sign is not defined) counted as 0x7F."""
+    total = 0
     for start in range(0, flat.numel(), chunk):
         c = flat[start:start + chunk].to(torch.int64)
         if codes:
             c = torch.where((c & 0x7F) == 0x7F, 0x7F, c)
-        pos = torch.arange(c.numel(), device=c.device, dtype=torch.int64).remainder_(251).add_(1)
-        yield int((c * pos).sum())
+        pos = torch.arange(start, start + c.numel(), device=c.device, dtype=torch.int64)
+        total += int((c * (pos * 2 + 1).mul_(HASH_MUL)).sum())
+    return total % (1 << 64)
 
 
 def code_hash(torch, qparams) -> str:
     """sha256 (first 16 hex digits) over every quantized leaf (by path) of
-    the position-weighted sums (``weighted_sums``) of its fp8 codes and of
+    the position-weighted sums (``weighted_sum``) of its fp8 codes and of
     its scales' bits, computed on the card: the full-width codes are 9.4 GB."""
     from repro_torch.core.policy import tree_leaves_with_path
     h = hashlib.sha256()
@@ -1065,8 +1079,7 @@ def code_hash(torch, qparams) -> str:
         h.update("/".join(path).encode())
         for part, codes in ((leaf.data.view(torch.uint8).reshape(-1), True),
                             (leaf.scale.contiguous().view(torch.int32).reshape(-1), False)):
-            for v in weighted_sums(torch, part, codes=codes):
-                h.update(v.to_bytes(8, "little", signed=True))
+            h.update(weighted_sum(torch, part, codes=codes).to_bytes(8, "little"))
     return h.hexdigest()[:16]
 
 
@@ -1100,22 +1113,37 @@ def quantize_breakdown(torch, seed: int, layers: int = 4) -> None:
     torch.cuda.empty_cache()
 
 
-def tree_hashes(torch, args, src: Path) -> None:
-    """Phase 5 alone for the package under ``src``: quantize the model made
-    by this script's ``make_weights`` and print both hashes, so two trees'
-    quantizes compare in one call."""
+def tree_readings(torch, layers: int = 40, seed: int = 0) -> None:
+    """What must not change between two trees, and the quantizer's time, for
+    the ``repro_torch`` first on ``sys.path``: phase 5's two hashes of a
+    quantize of the model this script's ``make_weights`` makes, and the
+    quantizer's device time (``device_ms``) at [4096,13696] and the LM head.
+    To compare another tree in one call, import this script with that tree's
+    ``src`` first on ``sys.path`` (see ``.claude/skills/verify/SKILL.md``)."""
+    import repro_torch
     from repro_torch.configs import QuantConfig, get_arch
     from repro_torch.kernels import _lib
+    from repro_torch.kernels.fp8_quant.kernel import quantize_fp8_cuda
     from repro_torch.models import build_model
     from repro_torch.quantize import quantize
     _lib.build_all()
-    cfg = dataclasses.replace(get_arch("glm4-9b"), n_layers=args.layers)
-    post, base = make_weights(torch, build_model(cfg), args.seed)
+    where = Path(repro_torch.__file__).resolve().parent
+    alpha = torch.tensor([1.0375], device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for I, O in ((4096, 13696), (4096, 151552)):
+        w = torch.randn((I, O), generator=g, device="cuda") * 0.02
+        log(f"quantizer of {where} [{I},{O}]: "
+            f"{device_ms(torch, [lambda: quantize_fp8_cuda(w, alpha, block=128)]):.4f} ms "
+            f"device time")
+        del w
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(get_arch("glm4-9b"), n_layers=layers)
+    post, base = make_weights(torch, build_model(cfg), seed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     qparams, report = quantize(post, base, QuantConfig(use_fused_kernel=True), mode="storage")
     torch.cuda.synchronize()
-    log(f"quantize with {src}: {time.perf_counter() - t0:.2f} s; chosen-alpha hash "
+    log(f"quantize with {where}: {time.perf_counter() - t0:.2f} s; chosen-alpha hash "
         f"{alpha_hash(report)}, code-and-scale hash {code_hash(torch, qparams)} over "
         f"{leaf_layers(report)} leaf-layers")
 
@@ -1125,9 +1153,6 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=40,
                     help="model depth (default: GLM-4-9B's 40)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--hashes-of", metavar="SRC",
-                    help="only quantize the model with the repro_torch package under SRC "
-                         "(another tree's src/) and print phase 5's hashes of it")
     args = ap.parse_args()
 
     import torch
@@ -1135,7 +1160,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    src = Path(args.hashes_of or Path(__file__).resolve().parent / "src").resolve()
+    src = Path(__file__).resolve().parent / "src"
     if not (src / "repro_torch").is_dir():
         print(f"chip_smoke: {src}/repro_torch not found; run from a checkout of the repo",
               file=sys.stderr)
@@ -1157,9 +1182,6 @@ def main() -> int:
                            timeout=60).stdout.strip().splitlines()
     clock_mhz = float(clock[0]) if clock and clock[0].strip().isdigit() else None
     log(f"maximum SM clock: {clock_mhz} MHz")
-    if args.hashes_of:
-        tree_hashes(torch, args, src)
-        return 0
 
     # 2. build
     sass = build_and_report()

@@ -140,19 +140,3 @@ def test_the_library_is_named_by_its_source_and_every_header(tmp_path, monkeypat
     (tmp_path / "scale_search.cu").write_text("// another kernel, changed\n")
     names.append(k.library_path())
     assert len(set(names)) == 4 and names[-1] == names[-2]
-
-
-def test_quantizer_source_reads_once_and_keeps_nan():
-    """The design the header states: the register-tile instance's streaming
-    16-byte loads, packed e4m3x2 conversions and 32-bit stores; NaN-
-    propagating max and min (one PTX instruction each) in the shared header."""
-    src = _lib.FP8_QUANT.source.read_text()
-    for needle in ("quant_tile_kernel", "quant_general_kernel", "__ldcs(", "__stcs(",
-                   "__nv_cvt_float2_to_fp8x2", "__fdiv_rn", "fmax_nan", "fmin_nan",
-                   'extern "C" int quantize_fp8'):
-        assert needle in src
-    assert "fmaxf" not in src and "fminf" not in src
-    hdr = (_lib.CSRC / "common.cuh").read_text()
-    assert "max.NaN.f32" in hdr and "min.NaN.f32" in hdr
-    sweep = _lib.SCALE_SEARCH.source.read_text()
-    assert "fmax_nan(__fdiv_rn" in sweep and "fmaxf" not in sweep

@@ -102,7 +102,8 @@ def _deltas(seed: int):
     """dp, dq [64, 96] (a 2 x 3 grid of 32 x 32 groups): noise, then NaN,
     ±inf, ±0 and normal values placed against each other's every kind.
     (No denormals: the reference's ``jnp.sign`` on XLA:CPU flushes them to
-    zero, the port keeps IEEE denormals — ROADMAP Queue C.)"""
+    zero, the port keeps IEEE denormals — ROADMAP Queue C 13, held by the
+    ``*_denormal_*`` tests below.)"""
     rng = np.random.default_rng(seed)
     dp = (rng.standard_normal((64, 96)) * 1e-3).astype(np.float32)
     dq = (dp + rng.standard_normal((64, 96)) * 2e-4).astype(np.float32)
@@ -156,6 +157,53 @@ def test_partial_sums_of_finite_deltas_are_unchanged():
     port = TM.partial_sums(_t(dp), _t(dq), (0, 1))
     want = torch.sum(torch.sign(_t(dp)) == torch.sign(_t(dq)), dtype=torch.float32)
     assert torch.equal(port["n_sign_match"], want)
+
+
+TINY = np.finfo(np.float32).tiny           # the smallest normal float32
+DENORMALS = [DEN, -DEN, np.float32(1e-40), np.float32(-1e-40), np.float32(1e-39),
+             np.float32(-1.1e-38)]
+
+
+def _matches(dp, dq, flush: bool) -> int:
+    """Sign matches in numpy (IEEE denormals), or with denormals read as 0
+    first (the reference's XLA:CPU, and f32 on the TPU)."""
+    if flush:
+        dp, dq = (np.where(np.abs(a) < TINY, np.float32(0.0), a) for a in (dp, dq))
+    return int(np.sum(np.sign(dp) == np.sign(dq)))
+
+
+def _denormal_deltas(seed: int):
+    """dp, dq [64, 96]: noise, then every denormal against every denormal,
+    ±0 and a normal value of each sign."""
+    rng = np.random.default_rng(seed)
+    dp = (rng.standard_normal((64, 96)) * 1e-3).astype(np.float32)
+    dq = (dp + rng.standard_normal((64, 96)) * 2e-4).astype(np.float32)
+    others = DENORMALS + [np.float32(0.0), np.float32(-0.0), np.float32(1e-3),
+                          np.float32(-1e-3)]
+    for i, a in enumerate(DENORMALS):
+        for j, b in enumerate(others):
+            dp[i, j], dq[i, j] = a, b
+            dp[10 + j, 20 + i], dq[10 + j, 20 + i] = b, a
+    return dp, dq
+
+
+@pytest.mark.parametrize("which", ["sign_rate", "partial_sums"])
+def test_denormal_deltas_differ_from_reference_as_recorded(which):
+    """ROADMAP Queue C 13, an open difference held here so that a change on
+    either side shows: the reference flushes denormal deltas to 0 before its
+    sign, the port keeps their IEEE sign.  Counts exact on each side."""
+    dp, dq = _denormal_deltas(5)
+    if which == "sign_rate":
+        port = round(float(TM.sign_rate(_t(dp), _t(dq))) * dp.size)
+        ref = round(float(RM.sign_rate(jnp.asarray(dp), jnp.asarray(dq))) * dp.size)
+    else:
+        port = int(TM.partial_sums(_t(dp), _t(dq), (0, 1))["n_sign_match"])
+        ref = int(RM.partial_sums(jnp.asarray(dp), jnp.asarray(dq), (0, 1))["n_sign_match"])
+    assert port == _matches(dp, dq, flush=False)
+    assert ref == _matches(dp, dq, flush=True)
+    # per denormal and placement, the flush adds 5 matches (3 denormals of
+    # the other sign, ±0) and removes 1 (the normal value of its sign)
+    assert ref - port == len(DENORMALS) * 2 * 4
 
 
 _VALUES = st.sampled_from([float("nan"), float("inf"), -float("inf"), 0.0, -0.0, 1e-30,
@@ -218,6 +266,29 @@ def test_sweep_plain_matches_reference_on_nonfinite_tiles(bs):
             _partials_equal(port[c:c + 1], np.asarray(ref), f"alpha {a}")
     assert np.isnan(port[:, 0, :2, [0, 2, 4]]).all()      # the NaN and +inf tiles' sums
     assert (port[:, 0, 0, 1] == 0).all()                  # a NaN scale matches no sign
+
+
+def test_sweep_on_denormal_deltas_differs_from_reference_as_recorded():
+    """ROADMAP Queue C 13 in the sweep: where wp holds a denormal over
+    wb = 0, dp is that denormal and dq is 0 (its code is 0).  The reference
+    counts those as sign matches (flushed), the port does not; every other
+    count equal."""
+    bs = 32
+    rng = np.random.default_rng(7)
+    wp = (rng.standard_normal((bs, 2 * bs)) * 0.1).astype(np.float32)
+    wb = (wp + rng.standard_normal(wp.shape) * 1e-3).astype(np.float32)
+    for j, d in enumerate(DENORMALS):
+        wp[3, j], wb[3, j] = d, 0.0            # dp = d, dq = 0: flips
+        wp[4, j], wb[4, j] = 0.0, d            # dp = dq = -d: a match on both sides
+    amax = _amax(wp, bs)
+    port = sweep_partials_ref(_t(wp), _t(wb), _t(amax), _t([1.0]), block_size=bs).numpy()
+    scale = amax * R448
+    for ref in (jax_sweep_ref(wp, wb, scale, np.float32([1.0]), block_size=bs),
+                sweep_partials_pallas(wp, wb, scale, np.float32([1.0]), block_size=bs,
+                                      interpret=True)):
+        ref = np.asarray(ref)
+        assert ref[0, 0, 0, 1] - port[0, 0, 0, 1] == len(DENORMALS)
+        np.testing.assert_array_equal(port[0, 0, 1, 1], ref[0, 0, 1, 1])
 
 
 # ---------------------------------------------------------------------------
