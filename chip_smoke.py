@@ -19,7 +19,9 @@ Phases:
      passes), blocks 64, 96, 256 and 66 and qmax 240 (the last two: the
      scalar-load instance), its time beside the bound and the issue bound
      of its SASS; both on tiles holding NaN, +-inf and zeros against their
-     plain versions on the card and on the CPU; the fp8 matmul has three
+     plain versions on the card and on the CPU (the sweep's sign counts
+     also on a tile of denormal deltas, which count as 0 as in the
+     reference); the fp8 matmul has three
      routes (decode and prefill on the tensor cores for bf16 x and block
      128, the CUDA-core kernel for every other operand pair), each checked,
      and all timed with cold weights on device time across M, beside
@@ -40,10 +42,18 @@ Phases:
      (kernels, the wgmma route included) agrees with its CPU run (plain
      versions), and a small float32 model, the CUDA-core route's own path,
      whose GPU run agrees with its CPU run to fp32 tolerance;
+  7b. the paged KV cache (``paged_phase``): 16 requests of 16-496 prompt
+     tokens through the contiguous engine and two paged serves of the same
+     ``qparams`` at ``cache_len`` 560: at capacity parity the greedy tokens
+     equal the contiguous engine's token for token; under a 120-block pool
+     admission waits and blocks recycle mid-dispatch, with conservation
+     checked after every admission and dispatch; the fp8 launch counts of
+     both; one paged dispatch under the CUDA sync debug mode;
   8. break one decode step, one prefill and one quantize (GLM-4-9B cut to
      4 layers at full width) down: host time, device busy time, kernel
      launches, the decode route's device time and the kernels that take
-     the device time (the quantizer's always listed).
+     the device time (the quantizer's always listed); and one paged decode
+     step beside a contiguous one at the paged phase's state.
 
 It exits non-zero if any phase fails and when no CUDA device is present.
 The last line of stdout is the JSON object
@@ -69,6 +79,10 @@ BF16_FLOPS = 989e12
 FP32_FLOPS = 67e12
 
 PROMPT, GEN, SLOTS, K_STEPS = 128, 64, 8, 8
+# the paged phase: 16 requests of 16-496 prompt tokens, blocks of 16 tokens,
+# 560 rows a slot (35 blocks); the pressure run's pool of 120 blocks holds
+# three to seven requests at once against the parity run's 280
+PAGED_REQUESTS, PAGED_CACHE_LEN, BLOCK, PRESSURE_BLOCKS = 16, 560, 16, 120
 
 
 def log(*a):
@@ -400,12 +414,19 @@ def check_quantizer(torch, weights) -> dict:
 
 
 DEN = 2.0 ** -149   # the smallest float32 denormal
+DEN_MAX = (2 ** 23 - 1) * DEN   # the largest float32 denormal
+TINY = 2.0 ** -126  # the smallest normal float32
+# denormal deltas of both signs, and the smallest normals beside them
+DENORMALS = (DEN, -DEN, 1e-40, -1e-40, 1e-39, -1.1e-38, DEN_MAX, -DEN_MAX)
 
 
 def nonfinite_pair(torch, bs: int):
     """wp, wb [2 bs, 3 bs] on the card: tile (0, 0) a NaN in wp, (0, 1) +inf,
-    (0, 2) -inf, (1, 0) zero but for a denormal delta of each sign (the
-    1e-12 floor), (1, 1) +inf and -inf, (1, 2) a NaN in wb only."""
+    (0, 2) -inf, (1, 0) zero but for denormal deltas (the 1e-12 floor):
+    each of ``DENORMALS`` in wp over wb = 0 and in wb under wp = 0 (the
+    reference reads a denormal as 0 in the sign), and ±TINY, the smallest
+    normal, over wb = 0 (kept);
+    (1, 1) +inf and -inf, (1, 2) a NaN in wb only."""
     g = torch.Generator(device="cuda").manual_seed(bs)
     wb = torch.randn((2 * bs, 3 * bs), generator=g, device="cuda") * 0.05
     wp = wb + torch.randn(wb.shape, generator=g, device="cuda") * 0.002
@@ -415,9 +436,19 @@ def nonfinite_pair(torch, bs: int):
     wp[bs:, :bs] = 0.0
     wb[bs:, :bs] = 0.0
     wp[bs + 1, 1], wb[bs + 2, 2] = DEN, -DEN
+    for j, d in enumerate(DENORMALS):
+        wp[bs + 3, j] = d                   # dp = d, dq = 0: a match once flushed
+        wb[bs + 4, j] = d                   # dp = dq = -d
+        wp[bs + 5, j] = -TINY if j % 2 else TINY
     wp[bs + 1, bs + 1], wp[bs + 4, 2 * bs - 1] = math.inf, -math.inf
     wb[bs + 2, 2 * bs + 3] = math.nan
     return wp, wb
+
+
+def sign_class(a, flush: bool):
+    """numpy sign of float32 ``a``, a denormal read as 0 with ``flush``."""
+    import numpy as np
+    return np.sign(np.where(np.abs(a) < TINY, np.float32(0.0), a) if flush else a)
 
 
 def sums_agree(torch, k, p) -> bool:
@@ -468,10 +499,19 @@ def check_nonfinite(torch) -> None:
                                 qmax=qmax)
         torch.cuda.synchronize()
         signs = (pk[..., 1] != pp[..., 1]).sum().item() + (pk[..., 1].cpu() != pc[..., 1]).sum().item()
-        ok = signs == 0 and all(sums_agree(torch, pk[..., i], pp[..., i]) for i in (0, 2, 3, 4))
+        # the denormal tile (1, 0), counted on the host: its codes are all 0
+        # (amax is the 1e-12 floor), so dq = -wb at every candidate
+        dp = (wp - wb)[bs:, :bs].cpu().numpy()
+        dq = (-wb)[bs:, :bs].cpu().numpy()
+        count = lambda flush: int((sign_class(dp, flush) == sign_class(dq, flush)).sum())
+        den_ok = bool((pk[:, 1, 0, 1] == count(True)).all())
+        ok = signs == 0 and den_ok and all(sums_agree(torch, pk[..., i], pp[..., i])
+                                           for i in (0, 2, 3, 4))
         log(f"kernel-check scale_search non-finite tiles block {bs} qmax {qmax:g}: sign counts "
             f"of tile (0,0) {pk[:, 0, 0, 1].tolist()[:3]}..., {signs} sign-count mismatches "
-            f"against the plain version on the card and the CPU -> {'ok' if ok else 'FAIL'}")
+            f"against the plain version on the card and the CPU; denormal tile (1,0) "
+            f"{pk[0, 1, 0, 1].item():g} matches, {count(True)} with denormals read as 0 "
+            f"({count(False)} as IEEE signs) -> {'ok' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"scale_search kernel disagrees on non-finite tiles, block {bs}"
                                  f" qmax {qmax:g}")
@@ -937,10 +977,7 @@ def main_path(torch, args, records: dict) -> None:
     # seven quantized products per layer: prefill rows take the wgmma route;
     # decode rows and each LM head (last token, M = slots) the decode route;
     # bf16 x at block 128 never takes the CUDA-core route
-    want = {"fp8_matmul_wgmma": 7 * cfg.n_layers * stats["prefill_calls"],
-            "fp8_matmul_decode": (7 * cfg.n_layers + 1) * stats["decode_steps"]
-            + stats["prefill_calls"],
-            "fp8_matmul": 0}
+    want = fp8_serve_launches(stats, cfg.n_layers)
     log(f"fp8 routes: {stats['prefill_calls']} prefill(s), {stats['decode_steps']} decode "
         f"steps -> expected launches {json.dumps(want)}")
     for name, n in want.items():
@@ -960,7 +997,229 @@ def main_path(torch, args, records: dict) -> None:
             raise AssertionError(f"DAQ sign rate below AbsMax on {name}")
     log(f"outputs: {len(outputs)} rows of {GEN} tokens in range; first row "
         f"{outputs[0][:12]}...")
-    breakdowns(torch, model, qparams, torch.stack(requests))
+    return model, qparams, torch.stack(requests)
+
+
+def fp8_serve_launches(stats: dict, n_layers: int) -> dict:
+    """The fp8 routes' launches a bf16 serve makes: seven quantized products
+    per layer, prefill rows (M >= 16) on the wgmma route, decode rows and
+    each LM head (last token, M = slots) on the decode route, none on the
+    CUDA-core route."""
+    return {"fp8_matmul_wgmma": 7 * n_layers * stats["prefill_calls"],
+            "fp8_matmul_decode": (7 * n_layers + 1) * stats["decode_steps"]
+            + stats["prefill_calls"],
+            "fp8_matmul": 0}
+
+
+# ---------------------------------------------------------------------------
+# The paged phase: the paged engine at full width against the contiguous one
+# ---------------------------------------------------------------------------
+
+def counted_serve(torch, engine, requests):
+    """``engine.serve`` with every kernel count zeroed just before and read
+    just after: (outputs, stats, launches, seconds)."""
+    from repro_torch.kernels._lib import KERNELS
+    for k in KERNELS:
+        k.launches = 0
+    t0 = time.perf_counter()
+    outputs, stats = engine.serve(requests, gen_tokens=GEN, return_stats=True)
+    if engine.model.device.type == "cuda":
+        torch.cuda.synchronize()
+    return outputs, stats, {k.name: k.launches for k in KERNELS}, time.perf_counter() - t0
+
+
+def admitted(torch, engine, requests):
+    """(cache, state, gen) of ``engine`` after one admission of its first
+    ``slots`` requests: the state a serve starts decoding from."""
+    from repro_torch.engine.scheduler import init_slot_state
+    model, cfg = engine.model, engine.cfg
+    if cfg.paged:
+        cache = model.init_paged_cache(cfg.slots, cfg.cache_len, block_size=cfg.block_size,
+                                       num_blocks=engine._num_blocks)
+    else:
+        cache = model.init_cache(cfg.slots, cfg.cache_len)
+    state = init_slot_state(cfg.slots, model.device)
+    gen = torch.Generator(device=model.device).manual_seed(0)
+    cache, state, _ = engine._admit(cache, state, list(range(cfg.slots)),
+                                    requests[:cfg.slots], GEN, gen)
+    return cache, state, gen
+
+
+def dispatch_sync_sites(torch, engine, requests) -> list[str]:
+    """Every synchronizing CUDA operation in one K-step dispatch of
+    ``engine`` after its first admission, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them: the innermost
+    frame of ``repro_torch`` that issued it (``file:line (source)``) and
+    the frame the warning names."""
+    import traceback
+    import warnings
+    cache, state, gen = admitted(torch, engine, requests)
+    torch.cuda.synchronize()
+    sites = set()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing CUDA operation" not in str(message):
+            return
+        stack = traceback.extract_stack()[:-1]
+        ours = [f for f in stack if "repro_torch" in f.filename] or stack
+        at = ours[-1]
+        sites.add(f"{Path(at.filename).name}:{at.lineno} ({(at.line or '').strip()}) via "
+                  f"{'/'.join(Path(filename).parts[-2:])}:{lineno}")
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            engine._dispatch(engine.params, state, cache, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return sorted(sites)
+
+
+def prefill_batch_bits(torch, model, qparams, requests) -> str:
+    """Whether a prompt's prefill depends on its admission group on the
+    card: the shortest request prefilled alone and right-padded beside the
+    longest, its last-token logits and its K rows compared bit for bit."""
+    import torch.nn.functional as F
+    lens = [int(r.shape[0]) for r in requests]
+    a, b = requests[lens.index(min(lens))], requests[lens.index(max(lens))]
+    L = a.shape[0]
+    la, ca = model.prefill(qparams, {"tokens": a[None]})
+    lb, cb = model.prefill(qparams, {"tokens": torch.stack([F.pad(a, (0, b.shape[0] - L)), b])},
+                           lengths=torch.tensor([L, b.shape[0]], dtype=torch.int32,
+                                                device=a.device))
+    ka, kb = ca["stack"]["L0"]["k"][:, 0, :L], cb["stack"]["L0"]["k"][:, 0, :L]
+    return (f"the {L}-token request prefilled alone vs right-padded beside the "
+            f"{b.shape[0]}-token one: logits max |diff| "
+            f"{(la[0].float() - lb[0].float()).abs().max().item():.4g}, same argmax "
+            f"{bool(la[0].argmax() == lb[0].argmax())}, K rows differing in "
+            f"{int((ka != kb).sum())} of {ka.numel()} values")
+
+
+def rope_theta_filled(torch):
+    """``models.common.rope_cos_sin`` with theta made on the device by a fill
+    where the port copies it from the host (a blocking copy: the one
+    synchronizing operation of a decode step, ROADMAP Queue C 14); the same
+    float32 values."""
+    from repro_torch.models.common import f32_reciprocal
+
+    def rope_cos_sin(positions, head_dim: int, theta: float):
+        half = head_dim // 2
+        exps = -torch.arange(0, half, dtype=torch.float32, device=positions.device) \
+            * f32_reciprocal(half)
+        freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                     device=positions.device), exps)
+        ang = positions.float()[..., None] * freqs
+        return torch.cos(ang), torch.sin(ang)
+
+    return rope_cos_sin
+
+
+def dispatch_under_error_mode(torch, engine, requests) -> None:
+    """One K-step dispatch of ``engine`` after its first admission under
+    ``set_sync_debug_mode("error")``, RoPE's theta copy replaced by a fill
+    (``rope_theta_filled``): any other synchronizing operation raises."""
+    import repro_torch.models.lm as lm
+    cache, state, gen = admitted(torch, engine, requests)
+    torch.cuda.synchronize()
+    real, lm.rope_cos_sin = lm.rope_cos_sin, rope_theta_filled(torch)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine._dispatch(engine.params, state, cache, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        lm.rope_cos_sin = real
+    torch.cuda.synchronize()
+
+
+def paged_phase(torch, args, model, qparams) -> dict:
+    """Phase 7b: 16 requests (prompts of 16-496 tokens drawn from ``--seed``,
+    64 generated tokens each) through the contiguous engine and two paged
+    serves at ``cache_len`` 560, ``slots=8``, ``k_steps=8``, blocks of 16:
+
+    * parity: the default pool (capacity parity, 8 x 35 = 280 blocks); its
+      greedy tokens equal the contiguous engine's token for token;
+    * pressure: 120 blocks, so admission waits on the reservation ledger and
+      blocks recycle inside dispatches, with ``check_invariants=True``
+      (conservation after every admission and dispatch): every request gets
+      64 tokens in range, the counters read popped == released at the end,
+      and it takes more prefill calls than the parity run.
+
+    Both paged serves hold the fp8 routes' launches to the main path's
+    formula.  Then one dispatch of each engine under the sync debug mode:
+    the paged dispatch adds no synchronizing operation to the contiguous
+    one's (``"warn"``), and with RoPE's theta copy made a fill, each runs
+    under ``"error"``.  ``prefill_batch_bits`` shows what the pressure run's
+    other admission groups change.  Returns the engines and requests for
+    the phase-8 breakdown."""
+    from repro_torch.engine import Engine
+    cfg = model.cfg
+    g = torch.Generator().manual_seed(args.seed + 3)
+    lens = torch.randint(16, 497, (PAGED_REQUESTS,), generator=g).tolist()
+    requests = [torch.randint(0, cfg.vocab_size, (L,), generator=g).to(model.device)
+                for L in lens]
+    log(f"paged phase: {PAGED_REQUESTS} requests, prompt lengths {lens}, {GEN} tokens each; "
+        f"slots={SLOTS}, k_steps={K_STEPS}, cache_len={PAGED_CACHE_LEN}, blocks of {BLOCK}")
+    kw = dict(slots=SLOTS, cache_len=PAGED_CACHE_LEN, k_steps=K_STEPS)
+    engines = {"contiguous": Engine(model, qparams, **kw),
+               "parity": Engine(model, qparams, paged=True, block_size=BLOCK, **kw),
+               "pressure": Engine(model, qparams, paged=True, block_size=BLOCK,
+                                  num_blocks=PRESSURE_BLOCKS, check_invariants=True, **kw)}
+    runs = {}
+    for name, engine in engines.items():
+        outputs, stats, launches, secs = counted_serve(torch, engine, requests)
+        runs[name] = (outputs, stats)
+        ctr = stats["counters"]
+        pool = f", pool {engine._num_blocks} blocks" if engine.cfg.paged else ""
+        log(f"paged phase, {name}{pool}: {secs:.2f} s; {stats['prefill_calls']} prefill calls, "
+            f"{stats['decode_steps']} decode steps; decode {ctr['tokens']} tokens in "
+            f"{stats['decode_s']:.3f} s = {ctr['tokens'] / stats['decode_s']:.1f} tok/s; "
+            f"cache_bytes {stats['cache_bytes']}; counters {json.dumps(ctr)}; "
+            f"launches {json.dumps(launches)}")
+        for out in outputs:
+            if len(out) != GEN or not all(0 <= t < cfg.vocab_size for t in out):
+                raise AssertionError(f"paged phase, {name}: bad output row {out[:8]}... "
+                                     f"({len(out)} tokens)")
+        if engine.cfg.paged:
+            want = {**fp8_serve_launches(stats, cfg.n_layers), "scale_search": 0,
+                    "fp8_quant": 0}
+            if any(launches[k] != n for k, n in want.items()):
+                raise AssertionError(f"paged phase, {name}: launches {launches}, expected "
+                                     f"{want}")
+            if ctr["blocks_popped"] != ctr["blocks_released"] or ctr["blocks_popped"] <= 0:
+                raise AssertionError(f"paged phase, {name}: blocks popped "
+                                     f"{ctr['blocks_popped']} != released "
+                                     f"{ctr['blocks_released']} at the end")
+    contig, parity, pressure = (runs[k][0] for k in ("contiguous", "parity", "pressure"))
+    same = sum(a == b for x, y in zip(pressure, parity) for a, b in zip(x, y))
+    first = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), None)
+             for x, y in zip(pressure, parity)]
+    log(f"paged phase: parity run == contiguous token for token: {parity == contig}; "
+        f"pressure run tokens equal to the parity run's: {same} of {GEN * len(requests)} "
+        f"({same / (GEN * len(requests)):.4f}); first differing token per request "
+        f"(0: the prefill's) {first}; prefill calls pressure "
+        f"{runs['pressure'][1]['prefill_calls']} vs parity {runs['parity'][1]['prefill_calls']}")
+    if parity != contig:
+        raise AssertionError("paged phase: the parity run's tokens differ from the "
+                             "contiguous engine's")
+    if runs["pressure"][1]["prefill_calls"] <= runs["parity"][1]["prefill_calls"]:
+        raise AssertionError("paged phase: the pressure run did not wait on the pool")
+    log(f"paged phase: {prefill_batch_bits(torch, model, qparams, requests)}")
+
+    sites = {name: dispatch_sync_sites(torch, engines[name], requests)
+             for name in ("contiguous", "parity")}
+    added = sorted(set(sites["parity"]) - set(sites["contiguous"]))
+    log(f"paged phase: synchronizing operations in one dispatch: contiguous "
+        f"{sites['contiguous'] or 'none'}, paged {sites['parity'] or 'none'}")
+    if added:
+        raise AssertionError(f"paged phase: the paged dispatch synchronizes at {added}")
+    for name in ("contiguous", "parity"):
+        dispatch_under_error_mode(torch, engines[name], requests)
+    log('paged phase: with RoPE\'s theta made on the device, one contiguous and one '
+        'paged dispatch ran under set_sync_debug_mode("error")')
+    return {"engines": engines, "requests": requests}
 
 
 def device_breakdown(torch, label: str, run, per: int, unit: str, top: int = 8,
@@ -1027,6 +1286,30 @@ def breakdowns(torch, model, qparams, prompts, steps: int = 8) -> None:
 
     device_breakdown(torch, f"prefill ({prompts.shape[0]} x {prompts.shape[1]} tokens)",
                      prefill, 1, "prefill")
+
+
+def paged_breakdown(torch, phase: dict, steps: int = 8) -> None:
+    """One ``decode_step_paged`` at the parity run's state (its first
+    admission: 8 slots, ``cache_len`` 560, 280 blocks of 16) beside one
+    contiguous ``decode_step`` at the same state and ``cache_len``: host ms,
+    device busy ms and launches per step."""
+    requests = phase["requests"]
+    for name, method in (("contiguous", "decode_step"), ("parity", "decode_step_paged")):
+        engine = phase["engines"][name]
+        cache, state, _ = admitted(torch, engine, requests)
+        step = getattr(engine.model, method)
+
+        def decode():
+            nonlocal cache
+            for _ in range(steps):
+                _, cache = step(engine.params, state["cur"], cache)
+            torch.cuda.synchronize()
+
+        label = "paged" if engine.cfg.paged else "contiguous"
+        device_breakdown(torch, f"{label} decode at cache_len {PAGED_CACHE_LEN} ({steps} "
+                         f"steps of {engine.cfg.slots} slots, {method})", decode, steps, "step")
+        del cache, state
+        torch.cuda.empty_cache()
 
 
 def leaf_layers(report) -> int:
@@ -1198,7 +1481,14 @@ def main() -> int:
     # the CUDA-core kernel's path is the float32 model's (bf16 serves never
     # reach it): its launches are counted there
     records["fp8_matmul"]["launches"] = fp32_launches["fp8_matmul"]
-    main_path(torch, args, records)
+    model, qparams, prompts = main_path(torch, args, records)
+    t0 = time.perf_counter()
+    phase = paged_phase(torch, args, model, qparams)
+    log(f"paged phase passed in {time.perf_counter() - t0:.1f} s")
+    breakdowns(torch, model, qparams, prompts)
+    paged_breakdown(torch, phase)
+    del phase, qparams
+    torch.cuda.empty_cache()
     quantize_breakdown(torch, args.seed)
 
     sources = {"scale_search": ("src/repro_torch/csrc/scale_search.cu",

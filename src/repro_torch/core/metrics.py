@@ -12,19 +12,24 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 EPS = 1e-12
 PARTIAL_KEYS = ("sq_err", "n_sign_match", "dot", "dp_sq", "dq_sq", "count")
-_DEN = 2.0 ** -149   # the smallest float32 denormal
+_TINY = 2.0 ** -126                   # the smallest normal float32
+_DEN_MAX = (2 ** 23 - 1) * 2.0 ** -149   # the largest float32 denormal
 
 
 def sign(x: torch.Tensor) -> torch.Tensor:
-    """The sign class of float32 ``x`` as ``jnp.sign`` compares it: -DEN,
-    ±0 or DEN for x < 0, x == 0, x > 0, and NaN for NaN, so a NaN matches
-    no sign.  (``torch.sign(nan)`` is 0, which would match a zero or NaN
-    delta.)  One pass, as ``torch.sign``: ``clamp`` keeps NaN, and every
-    nonzero float32 lies beyond the smallest denormal."""
-    return torch.clamp(x, -_DEN, _DEN)
+    """The sign class of float32 ``x`` as the reference's ``jnp.sign``
+    compares it: -TINY, ±0 or TINY for x <= -TINY, |x| < TINY, x >= TINY,
+    and NaN for NaN, so a NaN matches no sign.  A denormal is in the zero
+    class: XLA flushes float32 denormals to zero (on the CPU and the TPU
+    alike), so ``jnp.sign(1e-45)`` is 0.  (``torch.sign(nan)`` is 0, which
+    would match a zero or NaN delta.)  ``hardshrink`` zeroes |x| <= the
+    largest denormal and ``clamp`` folds the rest onto ±TINY; both keep
+    NaN, and neither touches the process's denormal mode."""
+    return torch.clamp(F.hardshrink(x, _DEN_MAX), -_TINY, _TINY)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,8 @@
 
 Port of the dense parts of ``repro/models/attention.py``.  Prefill runs the
 chunked online-softmax attention of ``models/flash.py``; decode runs one
-new token against a contiguous cache.  GQA is computed in grouped form —
+new token against a contiguous cache, or against the paged block pool
+through a block-table gather (``paged_decode_attention``).  GQA is computed in grouped form —
 q is reshaped to [B, S, Kv, G, hd] and contracted against un-repeated k/v.
 """
 from __future__ import annotations
@@ -109,3 +110,27 @@ def write_cache(cache_k, cache_v, k_new, v_new, lengths):
         # round trip exactly, and `where` need not support fp8
         cache[bidx, idx] = torch.where(fits, new, cache[bidx, idx].to(new.dtype)).to(cache.dtype)
     return cache_k, cache_v
+
+
+def write_paged_kv(pk, pv, k_new, v_new, wblk, woff):
+    """Write one new kv [B,1,Kv,hd] into the block pools [NB+1, bs, Kv, hd]
+    at each slot's write target (block ``wblk[b]``, in-block offset
+    ``woff[b]``, from ``engine.paged.alloc_step``; inactive slots point at
+    the trash block), in place."""
+    pk[wblk, woff] = k_new[:, 0].to(pk.dtype)
+    pv[wblk, woff] = v_new[:, 0].to(pv.dtype)
+    return pk, pv
+
+
+def paged_decode_attention(q, pk, pv, tbl, lengths, *, window: int = 0,
+                           softcap: float = 0.0) -> torch.Tensor:
+    """Decode attention against paged K/V pools.
+
+    q [B,1,H,hd]; pools [NB+1, bs, Kv, hd]; ``tbl`` [B, MB] block table;
+    ``lengths`` [B] = rows before this step's token.  The gather reproduces
+    the contiguous cache layout of ``MB * bs`` rows, so this is
+    value-identical to :func:`decode_attention` on a contiguous cache of
+    that length."""
+    from repro_torch.engine.paged import gather_blocks
+    return decode_attention(q, gather_blocks(pk, tbl), gather_blocks(pv, tbl), lengths + 1,
+                            window=window, softcap=softcap)

@@ -7,7 +7,11 @@ converted from the reference (``repro_torch.compat.params_from_jax``) loads
 directly.  Where the reference ``lax.scan``s over the stack, the port loops
 over layers in Python, slicing each layer's views out of the stacked
 leaves; decode caches are updated in place (the torch counterpart of the
-reference's buffer donation).
+reference's buffer donation).  The paged decode cache (``init_paged_cache``,
+``decode_step_paged``) holds per-layer K/V block pools
+``[n_layers, num_blocks + 1, block_size, Kv, hd]`` under
+``cache["stack"]["L0"]`` and the allocator state of ``engine/paged.py`` at
+the cache's top level, as the reference's does.
 """
 from __future__ import annotations
 
@@ -84,6 +88,31 @@ def _attn_decode(p: dict, x, cache: dict, lengths, cfg: ModelConfig):
 def apply_layer_decode(p: dict, x, cache: dict, lengths, cfg: ModelConfig):
     x = x + _attn_decode(p["attn"], apply_norm(p["ln1"], x, cfg.norm_eps), cache,
                          lengths, cfg)
+    return x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm_eps))
+
+
+def _attn_decode_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelConfig):
+    """Self-attn decode against the layer's block pools (views [NB+1, bs,
+    Kv, hd]): as :func:`_attn_decode` for every active slot, the new K/V
+    written in place at the step's write target (``pctx["wblk"]`` /
+    ``["woff"]``, trash for inactive slots) and attention over the block
+    table's gather."""
+    B = x.shape[0]
+    lengths = pctx["lengths"]
+    q, k, v = A.qkv_proj(p, x, cfg)
+    if cfg.rope_theta > 0:
+        cos, sin = rope_cos_sin(lengths[:, None], cfg.resolved_head_dim, cfg.rope_theta)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    A.write_paged_kv(cache["pk"], cache["pv"], k, v, pctx["wblk"], pctx["woff"])
+    out = A.paged_decode_attention(q, cache["pk"], cache["pv"], pctx["tbl"], lengths,
+                                   window=cfg.sliding_window,
+                                   softcap=cfg.attn_logit_softcap)
+    return qlinear.matmul(out.reshape(B, 1, -1), p["wo"])
+
+
+def apply_layer_decode_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelConfig):
+    x = x + _attn_decode_paged(p["attn"], apply_norm(p["ln1"], x, cfg.norm_eps), cache,
+                               pctx, cfg)
     return x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm_eps))
 
 
@@ -167,6 +196,47 @@ class Model:
         x = apply_norm(params["final_norm"], x, cfg.norm_eps)
         logits = lm_logits(params["embed"], x)[:, 0]
         return logits, {**cache, "lengths": lengths + 1}
+
+    def init_paged_cache(self, batch: int, cache_len: int, *, block_size: int,
+                         num_blocks: int) -> dict:
+        """Paged decode cache: per-layer block pools ``pk`` / ``pv``
+        ``[n_layers, num_blocks + 1, block_size, Kv, hd]`` (the last block is
+        the trash sink), per-slot ``lengths``, and the allocator state of
+        ``engine/paged.py`` (one table of ``ceil(cache_len / block_size)``
+        entries per slot, shared by every layer)."""
+        from repro_torch.engine.paged import blocks_for, init_block_state
+        cfg = self.cfg
+        shape = (cfg.n_layers, num_blocks + 1, block_size, cfg.n_kv_heads,
+                 cfg.resolved_head_dim)
+        z = lambda: torch.zeros(shape, dtype=cache_dtype(), device=self.device)
+        return {"stack": {"L0": {"pk": z(), "pv": z()}},
+                "lengths": torch.zeros(batch, dtype=torch.int32, device=self.device),
+                **init_block_state(batch, blocks_for(cache_len, block_size), num_blocks,
+                                   self.device)}
+
+    @torch.no_grad()
+    def decode_step_paged(self, params: dict, tokens: torch.Tensor, cache: dict):
+        """tokens [B, 1] -> (logits [B, V], paged cache with lengths + 1).
+        The step's block allocation and write targets (``alloc_step``) are
+        computed once and shared by every layer; the pools are written in
+        place, the allocator state is returned new."""
+        from repro_torch.engine.paged import BSTATE_KEYS, alloc_step
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], tokens)
+        lengths = cache["lengths"]
+        pools = cache["stack"]["L0"]
+        bs = pools["pk"].shape[2]
+        bstate, wblk, woff, _ = alloc_step({k: cache[k] for k in BSTATE_KEYS}, lengths, bs,
+                                           cache["tbl"].shape[1] * bs, ring=False)
+        pctx = {"lengths": lengths, "tbl": bstate["tbl"], "wblk": wblk.long(),
+                "woff": woff.long()}
+        stack = params["stack"]["L0"]
+        for i in range(n_stacked(stack)):
+            x = apply_layer_decode_paged(layer_view(stack, i), x, layer_view(pools, i),
+                                         pctx, cfg)
+        x = apply_norm(params["final_norm"], x, cfg.norm_eps)
+        logits = lm_logits(params["embed"], x)[:, 0]
+        return logits, {**cache, **bstate, "lengths": lengths + 1}
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

@@ -1,10 +1,14 @@
 """Device-resident engine counters, riding the slot state.
 
-Port of the token counter of ``repro/telemetry/counters.py``.  The counters
-are int32 scalars on the device, held in ``state["ctr"]`` and bumped inside
-the decode dispatch where each event happens; the host reads them in the
-same transfer that drains the token grid — no extra sync.  The contiguous
-path counts one event so far: tokens emitted through the dispatch grid.
+Port of the token and allocator counters of ``repro/telemetry/counters.py``.
+The counters are int32 scalars on the device, held in ``state["ctr"]`` and
+bumped inside the decode dispatch (and the paged admission) where each
+event happens; the host reads them in the same transfer that drains the
+token grid — no extra sync.  Allocator pops and releases are measured as
+``n_free`` / ``ref`` deltas around the ``engine/paged.py`` primitives.
+
+Conservation (asserted by ``Engine(check_invariants=True)``):
+``blocks_popped - blocks_released == num_blocks - n_free``.
 """
 from __future__ import annotations
 
@@ -14,6 +18,12 @@ COUNTER_KEYS = (
     "tokens",            # tokens emitted through the dispatch grids (the
                          # first token of each request comes from prefill,
                          # on the host side)
+    "blocks_popped",     # pool blocks popped (decode alloc, admission alloc;
+                         # CoW pops included)
+    "blocks_released",   # pool blocks pushed back on the free stack (slot
+                         # drains, zero-budget and stale-slot releases)
+    "cow_copies",        # copy-on-write pops (a write into a shared block
+                         # popped a private copy first)
 )
 
 

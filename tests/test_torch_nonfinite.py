@@ -49,7 +49,7 @@ from repro_torch.configs import QuantConfig
 from repro_torch.core import metrics as TM
 from repro_torch.core.policy import tree_leaves_with_path
 from repro_torch.kernels.fp8_quant.ref import quantize_fp8_ref
-from repro_torch.kernels.scale_search.ref import sweep_partials_ref
+from repro_torch.kernels.scale_search.ref import _qdq_e4m3, sweep_partials_ref
 from repro_torch.quant_runtime.qparams import QuantizedTensor
 from repro_torch.quantize import quantize
 
@@ -101,8 +101,7 @@ def _sums_close(port, ref, err=""):
 def _deltas(seed: int):
     """dp, dq [64, 96] (a 2 x 3 grid of 32 x 32 groups): noise, then NaN,
     ±inf, ±0 and normal values placed against each other's every kind.
-    (No denormals: the reference's ``jnp.sign`` on XLA:CPU flushes them to
-    zero, the port keeps IEEE denormals — ROADMAP Queue C 13, held by the
+    (Denormals, which both sides read as 0 in the sign, are held by the
     ``*_denormal_*`` tests below.)"""
     rng = np.random.default_rng(seed)
     dp = (rng.standard_normal((64, 96)) * 1e-3).astype(np.float32)
@@ -147,16 +146,19 @@ def test_partial_sums_count_nan_as_no_match_like_reference(axes):
 
 
 def test_partial_sums_of_finite_deltas_are_unchanged():
-    """Finite inputs, denormals included: the count is torch.sign's, bit for
-    bit (a denormal delta has the sign of its IEEE value)."""
+    """Finite inputs, denormals included: the count is torch.sign's of the
+    deltas with every denormal read as 0 (the reference's sign classes), bit
+    for bit."""
     rng = np.random.default_rng(3)
     dp = (rng.standard_normal((64, 64)) * 1e-3).astype(np.float32)
     dq = np.where(rng.random((64, 64)) < 0.1, 0.0, dp + rng.standard_normal((64, 64)) * 1e-3)
     dq = dq.astype(np.float32)
     dp[0, :4] = dq[1, :4] = [DEN, -DEN, np.float32(1e-40), np.float32(-1e-40)]
     port = TM.partial_sums(_t(dp), _t(dq), (0, 1))
-    want = torch.sum(torch.sign(_t(dp)) == torch.sign(_t(dq)), dtype=torch.float32)
+    flush = lambda a: _t(np.where(np.abs(a) < TINY, np.float32(0.0), a))
+    want = torch.sum(torch.sign(flush(dp)) == torch.sign(flush(dq)), dtype=torch.float32)
     assert torch.equal(port["n_sign_match"], want)
+    assert int(port["n_sign_match"]) == _matches(dp, dq, flush=True)
 
 
 TINY = np.finfo(np.float32).tiny           # the smallest normal float32
@@ -189,9 +191,9 @@ def _denormal_deltas(seed: int):
 
 @pytest.mark.parametrize("which", ["sign_rate", "partial_sums"])
 def test_denormal_deltas_differ_from_reference_as_recorded(which):
-    """ROADMAP Queue C 13, an open difference held here so that a change on
-    either side shows: the reference flushes denormal deltas to 0 before its
-    sign, the port keeps their IEEE sign.  Counts exact on each side."""
+    """ROADMAP Queue C 13, closed: the reference flushes denormal deltas to 0
+    before its sign, and so does the port's sign class.  Counts exact and
+    equal on both sides, and different from IEEE denormals' count."""
     dp, dq = _denormal_deltas(5)
     if which == "sign_rate":
         port = round(float(TM.sign_rate(_t(dp), _t(dq))) * dp.size)
@@ -199,11 +201,10 @@ def test_denormal_deltas_differ_from_reference_as_recorded(which):
     else:
         port = int(TM.partial_sums(_t(dp), _t(dq), (0, 1))["n_sign_match"])
         ref = int(RM.partial_sums(jnp.asarray(dp), jnp.asarray(dq), (0, 1))["n_sign_match"])
-    assert port == _matches(dp, dq, flush=False)
-    assert ref == _matches(dp, dq, flush=True)
+    assert port == ref == _matches(dp, dq, flush=True)
     # per denormal and placement, the flush adds 5 matches (3 denormals of
     # the other sign, ±0) and removes 1 (the normal value of its sign)
-    assert ref - port == len(DENORMALS) * 2 * 4
+    assert port - _matches(dp, dq, flush=False) == len(DENORMALS) * 2 * 4
 
 
 _VALUES = st.sampled_from([float("nan"), float("inf"), -float("inf"), 0.0, -0.0, 1e-30,
@@ -269,10 +270,11 @@ def test_sweep_plain_matches_reference_on_nonfinite_tiles(bs):
 
 
 def test_sweep_on_denormal_deltas_differs_from_reference_as_recorded():
-    """ROADMAP Queue C 13 in the sweep: where wp holds a denormal over
-    wb = 0, dp is that denormal and dq is 0 (its code is 0).  The reference
-    counts those as sign matches (flushed), the port does not; every other
-    count equal."""
+    """ROADMAP Queue C 13 in the sweep, closed: where wp holds a denormal
+    over wb = 0, dp is that denormal and dq is 0 (its code is 0).  The
+    reference counts those as sign matches (flushed), and so does the
+    port's plain version; every count equal to the reference's ref and
+    Pallas kernel."""
     bs = 32
     rng = np.random.default_rng(7)
     wp = (rng.standard_normal((bs, 2 * bs)) * 0.1).astype(np.float32)
@@ -287,8 +289,12 @@ def test_sweep_on_denormal_deltas_differs_from_reference_as_recorded():
                 sweep_partials_pallas(wp, wb, scale, np.float32([1.0]), block_size=bs,
                                       interpret=True)):
         ref = np.asarray(ref)
-        assert ref[0, 0, 0, 1] - port[0, 0, 0, 1] == len(DENORMALS)
-        np.testing.assert_array_equal(port[0, 0, 1, 1], ref[0, 0, 1, 1])
+        np.testing.assert_array_equal(port[..., 1], ref[..., 1])
+    # against IEEE signs, the flush turns each dp = d over dq = 0 into a match
+    tile = (slice(0, bs), slice(0, bs))
+    dq = _qdq_e4m3(_t(wp[tile]), _t(scale[0, 0]), 448.0) - _t(wb[tile])
+    ieee = int((torch.sign(_t(wp[tile]) - _t(wb[tile])) == torch.sign(dq)).sum())
+    assert port[0, 0, 0, 1] - ieee == len(DENORMALS)
 
 
 # ---------------------------------------------------------------------------
