@@ -1098,39 +1098,16 @@ def prefill_batch_bits(torch, model, qparams, requests) -> str:
             f"{int((ka != kb).sum())} of {ka.numel()} values")
 
 
-def rope_theta_filled(torch):
-    """``models.common.rope_cos_sin`` with theta made on the device by a fill
-    where the port copies it from the host (a blocking copy: the one
-    synchronizing operation of a decode step, ROADMAP Queue C 14); the same
-    float32 values."""
-    from repro_torch.models.common import f32_reciprocal
-
-    def rope_cos_sin(positions, head_dim: int, theta: float):
-        half = head_dim // 2
-        exps = -torch.arange(0, half, dtype=torch.float32, device=positions.device) \
-            * f32_reciprocal(half)
-        freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
-                                     device=positions.device), exps)
-        ang = positions.float()[..., None] * freqs
-        return torch.cos(ang), torch.sin(ang)
-
-    return rope_cos_sin
-
-
 def dispatch_under_error_mode(torch, engine, requests) -> None:
     """One K-step dispatch of ``engine`` after its first admission under
-    ``set_sync_debug_mode("error")``, RoPE's theta copy replaced by a fill
-    (``rope_theta_filled``): any other synchronizing operation raises."""
-    import repro_torch.models.lm as lm
+    ``set_sync_debug_mode("error")``: any synchronizing operation raises."""
     cache, state, gen = admitted(torch, engine, requests)
     torch.cuda.synchronize()
-    real, lm.rope_cos_sin = lm.rope_cos_sin, rope_theta_filled(torch)
     torch.cuda.set_sync_debug_mode("error")
     try:
         engine._dispatch(engine.params, state, cache, gen)
     finally:
         torch.cuda.set_sync_debug_mode(0)
-        lm.rope_cos_sin = real
     torch.cuda.synchronize()
 
 
@@ -1150,8 +1127,7 @@ def paged_phase(torch, args, model, qparams) -> dict:
     Both paged serves hold the fp8 routes' launches to the main path's
     formula.  Then one dispatch of each engine under the sync debug mode:
     the paged dispatch adds no synchronizing operation to the contiguous
-    one's (``"warn"``), and with RoPE's theta copy made a fill, each runs
-    under ``"error"``.  ``prefill_batch_bits`` shows what the pressure run's
+    one's (``"warn"``), and each runs under ``"error"``.  ``prefill_batch_bits`` shows what the pressure run's
     other admission groups change.  Returns the engines and requests for
     the phase-8 breakdown."""
     from repro_torch.engine import Engine
@@ -1217,8 +1193,8 @@ def paged_phase(torch, args, model, qparams) -> dict:
         raise AssertionError(f"paged phase: the paged dispatch synchronizes at {added}")
     for name in ("contiguous", "parity"):
         dispatch_under_error_mode(torch, engines[name], requests)
-    log('paged phase: with RoPE\'s theta made on the device, one contiguous and one '
-        'paged dispatch ran under set_sync_debug_mode("error")')
+    log('paged phase: one contiguous and one paged dispatch ran under '
+        'set_sync_debug_mode("error")')
     return {"engines": engines, "requests": requests}
 
 

@@ -88,11 +88,13 @@ def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
-    """positions [..., S] -> cos/sin [..., S, head_dim/2] (fp32)."""
+    """positions [..., S] -> cos/sin [..., S, head_dim/2] (fp32).  theta
+    enters the device as a fill, not a host-to-device copy, which would
+    synchronize the host once per layer."""
     half = head_dim // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=positions.device) \
         * f32_reciprocal(half)
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=positions.device),
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32, device=positions.device),
                       exps)
     ang = positions.float()[..., None] * freqs
     return torch.cos(ang), torch.sin(ang)
