@@ -422,10 +422,11 @@ DENORMALS = (DEN, -DEN, 1e-40, -1e-40, 1e-39, -1.1e-38, DEN_MAX, -DEN_MAX)
 
 def nonfinite_pair(torch, bs: int):
     """wp, wb [2 bs, 3 bs] on the card: tile (0, 0) a NaN in wp, (0, 1) +inf,
-    (0, 2) -inf, (1, 0) zero but for denormal deltas (the 1e-12 floor):
-    each of ``DENORMALS`` in wp over wb = 0 and in wb under wp = 0 (the
-    reference reads a denormal as 0 in the sign), and ±TINY, the smallest
-    normal, over wb = 0 (kept);
+    (0, 2) -inf, (1, 0) zero but for denormals (the 1e-12 floor): each of
+    ``DENORMALS`` in wp over wb = 0, in wb under wp = 0 and in wp over its
+    negation in wb (an IEEE difference that can be normal), all of which
+    the reference reads as 0, and ±TINY, the smallest normal, over wb = 0
+    (kept);
     (1, 1) +inf and -inf, (1, 2) a NaN in wb only."""
     g = torch.Generator(device="cuda").manual_seed(bs)
     wb = torch.randn((2 * bs, 3 * bs), generator=g, device="cuda") * 0.05
@@ -440,6 +441,7 @@ def nonfinite_pair(torch, bs: int):
         wp[bs + 3, j] = d                   # dp = d, dq = 0: a match once flushed
         wb[bs + 4, j] = d                   # dp = dq = -d
         wp[bs + 5, j] = -TINY if j % 2 else TINY
+        wp[bs + 6, j], wb[bs + 6, j] = d, -d   # dp = 0 - 0 as the reference reads it
     wp[bs + 1, bs + 1], wp[bs + 4, 2 * bs - 1] = math.inf, -math.inf
     wb[bs + 2, 2 * bs + 3] = math.nan
     return wp, wb
@@ -449,6 +451,18 @@ def sign_class(a, flush: bool):
     """numpy sign of float32 ``a``, a denormal read as 0 with ``flush``."""
     import numpy as np
     return np.sign(np.where(np.abs(a) < TINY, np.float32(0.0), a) if flush else a)
+
+
+def denormal_tile_matches(wp, wb, bs: int, flush: bool) -> int:
+    """Sign matches of the denormal tile (1, 0) counted on the host: its
+    codes are all 0 (amax is the 1e-12 floor), so dq = -wb at every
+    candidate; with ``flush`` every denormal, weight or delta, reads as 0,
+    as in the reference."""
+    import numpy as np
+    p, b = (t[bs:, :bs].cpu().numpy() for t in (wp, wb))
+    if flush:
+        p, b = (np.where(np.abs(t) < TINY, t * np.float32(0.0), t) for t in (p, b))
+    return int((sign_class(p - b, flush) == sign_class(-b, flush)).sum())
 
 
 def sums_agree(torch, k, p) -> bool:
@@ -499,11 +513,7 @@ def check_nonfinite(torch) -> None:
                                 qmax=qmax)
         torch.cuda.synchronize()
         signs = (pk[..., 1] != pp[..., 1]).sum().item() + (pk[..., 1].cpu() != pc[..., 1]).sum().item()
-        # the denormal tile (1, 0), counted on the host: its codes are all 0
-        # (amax is the 1e-12 floor), so dq = -wb at every candidate
-        dp = (wp - wb)[bs:, :bs].cpu().numpy()
-        dq = (-wb)[bs:, :bs].cpu().numpy()
-        count = lambda flush: int((sign_class(dp, flush) == sign_class(dq, flush)).sum())
+        count = lambda flush: denormal_tile_matches(wp, wb, bs, flush)
         den_ok = bool((pk[:, 1, 0, 1] == count(True)).all())
         ok = signs == 0 and den_ok and all(sums_agree(torch, pk[..., i], pp[..., i])
                                            for i in (0, 2, 3, 4))

@@ -25,6 +25,13 @@ __device__ __forceinline__ float from_e4m3(uint8_t q) {
 
 __device__ __forceinline__ int sign_of(float x) { return (x > 0.f) - (x < 0.f); }
 
+// x with a denormal read as a zero of its sign (NaN and inf kept), as XLA's
+// CPU backend reads a float32 operand (denormals are zero): how the
+// reference's kernels see a denormal weight.
+__device__ __forceinline__ float daz(float x) {
+  return fabsf(x) < __int_as_float(0x00800000) ? copysignf(0.f, x) : x;
+}
+
 // NaN-propagating max and min (PTX max.NaN / min.NaN, sm_80+): one
 // instruction each, like fmaxf / fminf, which return the non-NaN operand
 // instead.  The reference's jnp.max, jnp.maximum and jnp.clip, and the plain

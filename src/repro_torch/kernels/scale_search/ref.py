@@ -4,7 +4,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.formats import f32_reciprocal
-from repro_torch.core.metrics import sign
+from repro_torch.core.metrics import daz, sign
 
 N_STATS = 8  # 5 used + 3 pad, as the reference kernel's output record
 
@@ -20,12 +20,13 @@ def sweep_partials_ref(wp: torch.Tensor, wb: torch.Tensor, amax: torch.Tensor,
     max|wp|, clamped to 1e-12), alphas [n_cand] -> partials
     [n_cand, I/bs, O/bs, 8] fp32: per block and candidate
     ``[sq_err, n_sign_match, dot, dp_sq, dq_sq, 0, 0, 0]`` at the scale
-    ``amax * (alpha * (1/qmax))`` (``granularity.scale_from_absmax``)."""
+    ``amax * (alpha * (1/qmax))`` (``granularity.scale_from_absmax``).
+    A denormal weight reads as a zero of its sign, as in the reference."""
     I, O = wp.shape
     bs = block_size
     nbi, nbo = I // bs, O // bs
-    wp4 = wp.float().reshape(nbi, bs, nbo, bs)
-    wb4 = wb.float().reshape(nbi, bs, nbo, bs)
+    wp4 = daz(wp.float()).reshape(nbi, bs, nbo, bs)
+    wb4 = daz(wb.float()).reshape(nbi, bs, nbo, bs)
     dp = wp4 - wb4
     sign_dp = sign(dp)
     dp_sq = torch.sum(dp * dp, dim=(1, 3))

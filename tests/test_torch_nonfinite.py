@@ -419,3 +419,82 @@ def test_quantize_with_nonfinite_leaves_reports_like_reference(nonfinite_run):
         _floats_equal(port["sign_rate"], ref["sign_rate"], side)
         for k in ("mse", "cosine", "delta_l2"):
             assert np.isnan(port[k]) == np.isnan(ref[k]), side + k
+
+
+# ---------------------------------------------------------------------------
+# A whole storage-mode quantize with denormal weights (ROADMAP Queue C 13)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def denormal_run():
+    """Both packages quantize the reduced GLM-4-9B float32 tree after
+    denormal *weights* went into it (XLA reads them as 0 in the absmax,
+    the division and the delta; the port reads IEEE values): ``w_gate``
+    layer 0 holds a 32 x 32 tile whose post and base weights are all
+    denormals of both signs, ``w_up`` layer 0 holds 300 post and 300 base
+    weights set to denormals among normal ones, and ``w_down`` layer 1 a
+    denormal base under every post weight of its first row."""
+    cfg = ref_reduced(ref_get_arch("glm4-9b"))
+    shapes = jax.eval_shape(ref_build_model(cfg).init, jax.random.PRNGKey(0))
+    rng = np.random.default_rng(3)
+
+    def draw(s):
+        if len(s.shape) >= 2:
+            return (rng.standard_normal(s.shape) * 0.05).astype(np.float32)
+        return (1.0 + 0.1 * rng.standard_normal(s.shape)).astype(np.float32)
+
+    def denormals(n):
+        return (rng.integers(1, 1 << 23, n) * rng.choice([-1, 1], n)).astype(np.float32) * DEN
+
+    post = jax.tree.map(draw, shapes)
+    base = jax.tree.map(lambda a: a + (rng.standard_normal(a.shape) * 0.005).astype(np.float32)
+                        if a.ndim >= 2 else a, post)
+    pm, bm = post["stack"]["L0"]["mlp"], base["stack"]["L0"]["mlp"]
+    pm["w_gate"][0, :32, :32] = denormals(32 * 32).reshape(32, 32)
+    bm["w_gate"][0, :32, :32] = denormals(32 * 32).reshape(32, 32)
+    for tree in (pm, bm):
+        flat = tree["w_up"][0].reshape(-1)
+        flat[rng.choice(flat.size, 300, replace=False)] = denormals(300)
+    bm["w_down"][1, 0] = denormals(bm["w_down"].shape[2])
+    kw = dict(use_fused_kernel=True, block_size=32)
+    to_ref = lambda t: jax.tree.map(jnp.asarray, t)
+    rqt, rrep = ref_quantize(to_ref(post), to_ref(base), RefQuantConfig(**kw), mode="storage")
+    qt, rep = quantize(params_from_jax(post), params_from_jax(base), QuantConfig(**kw),
+                       mode="storage")
+    return qt, rep, params_from_jax(jax.device_get(rqt)), rrep
+
+
+def test_quantize_with_denormal_weights_matches_reference(denormal_run):
+    """ROADMAP Queue C 13's open half: with denormal weights (not only
+    deltas) the chosen alphas (to the one ulp of a fine-grid point, Queue
+    C 4), the fp8 codes and scales of every layer whose alpha is equal, and
+    the sign rates (the sign-match counts over the element count) equal the
+    reference's; the all-denormal tile gets codes ±0 on both sides.  Before
+    the port read denormal weights as zeros (``metrics.daz``), ``w_gate``'s
+    sign rates differed: two denormals of opposite signs have a normal IEEE
+    difference, which the reference reads as 0 - 0."""
+    qt, rep, rqt, rrep = denormal_run
+    assert list(rep.per_leaf) == list(rrep.per_leaf)
+    same = {}
+    for name, leaf in rrep.per_leaf.items():
+        alpha, ref_alpha = rep.per_leaf[name]["alpha"], np.asarray(leaf["alpha"])
+        np.testing.assert_array_max_ulp(alpha, ref_alpha, maxulp=1)
+        same[name] = np.atleast_1d(alpha == ref_alpha)
+        sides = ("default", "chosen") if same[name].all() else ("default",)
+        for side in sides:
+            _floats_equal(rep.per_leaf[name][side]["sign_rate"], leaf[side]["sign_rate"],
+                          f"{name} {side}")
+    assert same["stack/L0/mlp/w_gate"].all()
+    for (path, a), (_, b) in zip(tree_leaves_with_path(qt), tree_leaves_with_path(rqt)):
+        if not isinstance(a, QuantizedTensor):
+            continue
+        name = "/".join(path)
+        lay = lambda t: t.reshape(len(same.get(name, [True])), -1)
+        for exact, ca, cb, sa, sb in zip(same.get(name, [True]), lay(_u8(a.data)),
+                                         lay(_u8(b.data)), lay(a.scale.numpy()),
+                                         lay(b.scale.numpy())):
+            if exact:
+                _codes_equal(ca, cb, name)
+                _floats_equal(sa, sb, name)
+    # ±0 codes, the sign of each denormal kept (0x80 is E4M3's -0)
+    assert not (_u8(qt["stack"]["L0"]["mlp"]["w_gate"].data)[0, :32, :32] & 0x7F).any()
