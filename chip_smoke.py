@@ -48,12 +48,22 @@ Phases:
      equal the contiguous engine's token for token; under a 120-block pool
      admission waits and blocks recycle mid-dispatch, with conservation
      checked after every admission and dispatch; the fp8 launch counts of
-     both; one paged dispatch under the CUDA sync debug mode;
+     both; one contiguous and one paged dispatch under the CUDA sync debug
+     mode;
+  7c. prefix caching and chunked prefill (``prefix_phase``): 18 requests
+     sharing a 128-token system prompt through the one-shot paged engine,
+     a chunked one (``chunk_size=64``) and a chunked, prefix-cached one
+     served cold then warm; conservation after every admission and
+     dispatch, prefix hits, fewer prompt tokens prefilled warm than cold, a
+     copy-on-write block, warm == cold token for token, the fp8 launch
+     counts of the chunked serves, one chunked dispatch under the sync
+     debug mode, and the chunked-vs-one-shot agreement;
   8. break one decode step, one prefill and one quantize (GLM-4-9B cut to
      4 layers at full width) down: host time, device busy time, kernel
      launches, the decode route's device time and the kernels that take
-     the device time (the quantizer's always listed); and one paged decode
-     step beside a contiguous one at the paged phase's state.
+     the device time (the quantizer's always listed); one paged decode
+     step beside a contiguous one at the paged phase's state; and one
+     chunked dispatch beside a plain paged one at one state.
 
 It exits non-zero if any phase fails and when no CUDA device is present.
 The last line of stdout is the JSON object
@@ -83,6 +93,11 @@ PROMPT, GEN, SLOTS, K_STEPS = 128, 64, 8, 8
 # 560 rows a slot (35 blocks); the pressure run's pool of 120 blocks holds
 # three to seven requests at once against the parity run's 280
 PAGED_REQUESTS, PAGED_CACHE_LEN, BLOCK, PRESSURE_BLOCKS = 16, 560, 16, 120
+# the prefix phase: 16 requests of a 128-token system prompt and a 16-368
+# token suffix, then two prefixes of earlier prompts cut mid-block (a
+# partial-tail hit, so a copy-on-write decode write); chunks of 64 tokens,
+# so each chunk product has SLOTS * 64 = 512 rows (the wgmma route)
+SYSTEM_PROMPT, SUFFIX_MIN, SUFFIX_MAX, CHUNK = 128, 16, 368, 64
 
 
 def log(*a):
@@ -1208,6 +1223,208 @@ def paged_phase(torch, args, model, qparams) -> dict:
     return {"engines": engines, "requests": requests}
 
 
+# ---------------------------------------------------------------------------
+# The prefix phase: prefix caching and chunked prefill at full width
+# ---------------------------------------------------------------------------
+
+def fp8_chunked_launches(stats: dict, n_layers: int) -> dict:
+    """The fp8 routes' launches of a chunked serve: every dispatch step's
+    decode sub-step as a decode step, and each step of a chunked dispatch
+    one chunk sub-step whose seven products a layer see SLOTS * CHUNK rows
+    (the wgmma route) and whose LM head sees one row a slot (the decode
+    route); no one-shot prefill."""
+    pieces = stats["chunk_dispatches"] * K_STEPS
+    return {"fp8_matmul_wgmma": 7 * n_layers * pieces,
+            "fp8_matmul_decode": (7 * n_layers + 1) * stats["decode_steps"] + pieces,
+            "fp8_matmul": 0}
+
+
+def agreement(a: list, b: list) -> str:
+    """Tokens of ``a`` equal to ``b``'s, first tokens equal, and the first
+    differing step per request (None: equal throughout)."""
+    same = sum(x == y for ra, rb in zip(a, b) for x, y in zip(ra, rb))
+    total = sum(len(r) for r in a)
+    firsts = sum(ra[0] == rb[0] for ra, rb in zip(a, b))
+    diverge = [next((i for i, (x, y) in enumerate(zip(ra, rb)) if x != y), None)
+               for ra, rb in zip(a, b)]
+    return (f"{same} of {total} tokens equal ({same / total:.4f}), first tokens equal in "
+            f"{firsts} of {len(a)}, first differing step per request {diverge}")
+
+
+def prefix_requests(torch, args, vocab: int, device) -> list:
+    g = torch.Generator().manual_seed(args.seed + 5)
+    system = torch.randint(0, vocab, (SYSTEM_PROMPT,), generator=g)
+    sfx = torch.randint(SUFFIX_MIN, SUFFIX_MAX + 1, (PAGED_REQUESTS,), generator=g).tolist()
+    requests = [torch.cat([system, torch.randint(0, vocab, (n,), generator=g)]) for n in sfx]
+    # a prefix of requests 0 and 1 ending 5 tokens before the end of their
+    # last full block: a full hit of the blocks before it and a partial hit
+    # of that block, shared until the first decode write copies it
+    requests += [r[:r.shape[0] // BLOCK * BLOCK - 5] for r in requests[:2]]
+    return [r.to(device) for r in requests]
+
+
+def first_chunked_dispatch_under_error_mode(torch, engine) -> list:
+    """Wrap ``engine``'s chunked dispatch so that its first call runs under
+    ``set_sync_debug_mode("error")`` (any synchronizing operation raises);
+    returns a list that holds one entry once that call has run."""
+    real, ran = engine._dispatch_chunk, []
+
+    def dispatch(*a):
+        if ran:
+            return real(*a)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = real(*a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ran.append(True)
+        return out
+
+    engine._dispatch_chunk = dispatch
+    return ran
+
+
+def prefix_phase(torch, args, model, qparams) -> dict:
+    """Phase 7c: 18 greedy requests (``prefix_requests``: a shared 128-token
+    system prompt, suffixes of 16-368 tokens drawn from ``--seed``, and two
+    mid-block prefixes of earlier prompts), 64 generated tokens each,
+    ``cache_len`` 560, blocks of 16, ``slots=8``, ``k_steps=8``, the default
+    pool (280 blocks), through:
+
+    * one-shot: the paged engine of phase 7b;
+    * chunked: ``chunk_size=64``, ``check_invariants=True``;
+    * prefix: ``prefix_cache=True, chunk_size=64, check_invariants=True``,
+      served cold, then warm in the same engine.
+
+    Asserts: conservation after every admission and dispatch
+    (``check_invariants``); after each serve the counters account for the
+    blocks the index holds (``held0 + popped - released == holds``); prefix
+    hits counted on the device equal the host's and are > 0; the warm
+    serve prefills fewer prompt tokens than the cold one; at least one
+    copy-on-write; warm == cold token for token; every request's 64
+    tokens in range; the fp8 launch formula of each chunked serve
+    (``fp8_chunked_launches``; ``SLOTS * CHUNK >= TC_MIN_ROWS``) and of the
+    one-shot serve; then one more warm serve of the first 8 requests whose
+    first chunked dispatch runs under ``set_sync_debug_mode("error")``.
+    Prints the chunked-vs-one-shot agreement (PERF.md, decision b: not
+    asserted)."""
+    from repro_torch.engine import Engine
+    from repro_torch.kernels.fp8_matmul.kernel import TC_MIN_ROWS
+    cfg = model.cfg
+    if SLOTS * CHUNK < TC_MIN_ROWS:
+        raise AssertionError("a chunk product must take the wgmma route")
+    requests = prefix_requests(torch, args, cfg.vocab_size, model.device)
+    log(f"prefix phase: {len(requests)} requests, prompt lengths "
+        f"{[int(r.shape[0]) for r in requests]} ({SYSTEM_PROMPT}-token system prompt), "
+        f"{GEN} tokens each; slots={SLOTS}, k_steps={K_STEPS}, cache_len={PAGED_CACHE_LEN}, "
+        f"blocks of {BLOCK}, chunk_size={CHUNK}")
+    kw = dict(slots=SLOTS, cache_len=PAGED_CACHE_LEN, k_steps=K_STEPS, paged=True,
+              block_size=BLOCK)
+    engines = {"one-shot": Engine(model, qparams, **kw),
+               "chunked": Engine(model, qparams, chunk_size=CHUNK, check_invariants=True, **kw),
+               "prefix": Engine(model, qparams, chunk_size=CHUNK, prefix_cache=True,
+                                check_invariants=True, **kw)}
+    runs = {}
+    for name, key in (("one-shot", "one-shot"), ("chunked", "chunked"), ("prefix", "prefix"),
+                      ("prefix-warm", "prefix")):
+        engine = engines[key]
+        held0 = len(engine._hold_blocks)
+        outputs, stats, launches, secs = counted_serve(torch, engine, requests)
+        runs[name] = (outputs, stats)
+        ctr = stats["counters"]
+        dec = ctr["tokens"]
+        log(f"prefix phase, {name}: {secs:.2f} s, {len(requests) * GEN / secs:.1f} tok/s end to "
+            f"end; {stats['prefill_calls']} admissions, {stats['dispatches']} dispatches "
+            f"({stats.get('chunk_dispatches', 0)} chunked), {stats['prefill_tokens']} prompt "
+            f"tokens prefilled, {stats.get('prefix_hits', 0)} prefix-hit tokens, "
+            f"{stats.get('prefix_evictions', 0)} evictions; {dec} tokens through the dispatches "
+            f"in {stats['decode_s']:.3f} s; cache_bytes {stats['cache_bytes']}; index holds "
+            f"{len(engine._hold_blocks)}; counters {json.dumps(ctr)}; launches "
+            f"{json.dumps(launches)}")
+        for out in outputs:
+            if len(out) != GEN or not all(0 <= t < cfg.vocab_size for t in out):
+                raise AssertionError(f"prefix phase, {name}: bad output row {out[:8]}... "
+                                     f"({len(out)} tokens)")
+        want = fp8_chunked_launches(stats, cfg.n_layers) if engine.cfg.chunk_size \
+            else fp8_serve_launches(stats, cfg.n_layers)
+        if any(launches[k] != n for k, n in want.items()):
+            raise AssertionError(f"prefix phase, {name}: launches {launches}, expected {want}")
+        if held0 + ctr["blocks_popped"] - ctr["blocks_released"] != len(engine._hold_blocks):
+            raise AssertionError(f"prefix phase, {name}: {held0} held before + popped "
+                                 f"{ctr['blocks_popped']} - released {ctr['blocks_released']}"
+                                 f" != {len(engine._hold_blocks)} held by the index")
+    one, chunked = runs["one-shot"][0], runs["chunked"][0]
+    (cold, cs), (warm, ws) = runs["prefix"], runs["prefix-warm"]
+    log(f"prefix phase: chunked vs one-shot: {agreement(chunked, one)}")
+    log(f"prefix phase: prefix cold vs chunked: {agreement(cold, chunked)}")
+    log(f"prefix phase: warm vs cold: {agreement(warm, cold)}")
+    for name, st in (("cold", cs), ("warm", ws)):
+        if not st["counters"]["prefix_hit_tokens"] == st["prefix_hits"] > 0:
+            raise AssertionError(f"prefix phase, {name}: prefix-hit tokens "
+                                 f"{st['counters']['prefix_hit_tokens']} on the device, "
+                                 f"{st['prefix_hits']} on the host")
+    if not ws["prefill_tokens"] < cs["prefill_tokens"]:
+        raise AssertionError("prefix phase: the warm serve prefilled no fewer prompt tokens")
+    if ws["counters"]["cow_copies"] < 1:
+        raise AssertionError("prefix phase: no copy-on-write in the warm serve")
+    if warm != cold:
+        raise AssertionError("prefix phase: the warm serve's tokens differ from the cold one's")
+    ran = first_chunked_dispatch_under_error_mode(torch, engines["prefix"])
+    engines["prefix"].serve(requests[:SLOTS], gen_tokens=GEN)
+    if not ran:
+        raise AssertionError("prefix phase: no chunked dispatch ran under the sync debug mode")
+    log('prefix phase: one chunked, prefix-cached dispatch ran under '
+        'set_sync_debug_mode("error")')
+    return {"requests": requests}
+
+
+def chunk_breakdown(torch, model, qparams, requests, ref_engine) -> None:
+    """One K-step dispatch with a chunk piece beside a plain paged dispatch
+    at the same state: ``ref_engine``'s first admission of 8 requests (8
+    slots decoding, ``cache_len`` 560, 280 blocks of 16); the chunked
+    dispatch (``chunk_size`` 64, copy-on-write decode) has slot 7 readmitted
+    to prefill the 496-token prompt of the paged phase's longest request, so
+    each of its 8 steps runs a decode sub-step and a 64-token chunk piece.
+    Each run starts from a copy of the state: host ms, device busy ms and
+    launches per step."""
+    from repro_torch.engine import Engine
+    from repro_torch.engine.paged import blocks_for
+    from repro_torch.engine.scheduler import init_slot_state
+    chunk_eng = Engine(model, qparams, slots=SLOTS, cache_len=PAGED_CACHE_LEN,
+                       k_steps=K_STEPS, paged=True, block_size=BLOCK, chunk_size=CHUNK,
+                       prefix_cache=True)
+    cache0, state0, gen = admitted(torch, ref_engine, requests)
+    state1 = {**init_slot_state(SLOTS, model.device, prompt_cap=PAGED_CACHE_LEN),
+              **{k: state0[k].clone() for k in ("cur", "active", "remaining")}}
+    cache1 = clone_tree(cache0)
+    prompt = max(requests, key=lambda r: r.shape[0])[:PAGED_CACHE_LEN - GEN]
+    L, mb = int(prompt.shape[0]), chunk_eng._mb
+    ints = torch.full((mb + PAGED_CACHE_LEN,), -1, dtype=torch.int32, device=model.device)
+    ints[mb:] = 0
+    ints[mb:mb + L] = prompt
+    cache1, state1, _ = chunk_eng._admit_chunk(cache1, state1, SLOTS - 1, ints, 0,
+                                               blocks_for(L, BLOCK), 0, 0, 0, L, GEN - 1)
+    for label, engine, dispatch, cache, state in (
+            ("plain paged", ref_engine, ref_engine._dispatch, cache0, state0),
+            (f"chunked ({L}-token prompt in slot {SLOTS - 1})", chunk_eng,
+             chunk_eng._dispatch_chunk, cache1, state1)):
+        def run():
+            dispatch(engine.params, clone_tree(state), clone_tree(cache), gen)
+            torch.cuda.synchronize()
+
+        device_breakdown(torch, f"{label} dispatch at cache_len {PAGED_CACHE_LEN} "
+                         f"({K_STEPS} steps of {SLOTS} slots)", run, K_STEPS, "step")
+    del cache0, cache1
+    torch.cuda.empty_cache()
+
+
+def clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
 def device_breakdown(torch, label: str, run, per: int, unit: str, top: int = 8,
                      always: tuple[str, ...] = ()) -> None:
     """Host time of ``run()`` (which ends in a synchronize) without the
@@ -1471,8 +1688,12 @@ def main() -> int:
     t0 = time.perf_counter()
     phase = paged_phase(torch, args, model, qparams)
     log(f"paged phase passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    prefix_phase(torch, args, model, qparams)
+    log(f"prefix phase passed in {time.perf_counter() - t0:.1f} s")
     breakdowns(torch, model, qparams, prompts)
     paged_breakdown(torch, phase)
+    chunk_breakdown(torch, model, qparams, phase["requests"], phase["engines"]["parity"])
     del phase, qparams
     torch.cuda.empty_cache()
     quantize_breakdown(torch, args.seed)

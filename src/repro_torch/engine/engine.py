@@ -24,23 +24,44 @@ fetched; everything per token lives on the device:
   and blocks recycle inside the K-step dispatch as slots drain.  Greedy
   outputs equal the contiguous engine's token for token when admission is
   the same (a pool at capacity parity, the default ``num_blocks``).
+* **chunked prefill** — ``chunk_size > 0`` (paged only) moves prefill into
+  the decode dispatch: admission only maps blocks and arms the slot's
+  prompt buffer, and each dispatch step runs one ``chunk_size``-token
+  piece beside the other slots' decode step (scheduler.py), so a long
+  prompt streams instead of stalling decode.
+* **prefix caching** — ``prefix_cache=True`` (implies chunked prefill, at
+  ``chunk_size = 4 * block_size`` unless given) shares full prompt blocks
+  across requests: a host index of chained block hashes (engine/prefix.py)
+  maps matched leading blocks into the new slot's table with
+  ``ref += 1``, and only the unmatched tail is prefilled.  Released blocks
+  stay cached (the index holds one reference) until LRU eviction makes
+  room, in place of a FIFO wait that could deadlock; the cache persists
+  across ``serve`` calls.  A partly matched last block is mapped shared,
+  and the first decode write copies it (copy-on-write).
 
-Prefix caching, chunked prefill and speculative decoding of the reference
-engine are not ported yet.
+Every prefill the engine runs (one-shot or a chunk) uses one flash tile
+shape, ``(4 * block_size, blocks_for(cache_len) * block_size)``
+(``Engine._tiles``), so on the CPU a chunked prefill gives the one-shot
+prefill's bits and greedy tokens.  Speculative decoding of the reference
+engine is not ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import deque
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch.engine import paged as P
+from repro_torch.engine.prefix import PrefixIndex
 from repro_torch.engine.sampler import SamplingParams, sample
 from repro_torch.engine.scheduler import init_slot_state, make_decode_dispatch
-from repro_torch.telemetry.counters import COUNTER_KEYS, bump, counter_totals
+from repro_torch.telemetry.counters import (COUNTER_KEYS, bump, counter_totals,
+                                            init_counters)
 
 
 @dataclass(frozen=True)
@@ -54,6 +75,10 @@ class EngineConfig:
     block_size: int = 16    # tokens per KV block (paged only)
     num_blocks: int = 0     # pool size; 0 -> slots * ceil(cache_len / block_size)
                             # (capacity parity with the contiguous cache)
+    chunk_size: int = 0     # >0: chunked prefill inside the decode dispatch
+                            # (paged only; tokens per prefill piece)
+    prefix_cache: bool = False  # refcounted prompt-block sharing (paged;
+                                # implies chunked prefill)
     check_invariants: bool = False  # assert allocator conservation after
                                     # every admission and dispatch (slow)
 
@@ -74,14 +99,29 @@ class Engine:
             raise TypeError("pass either cfg= or keyword fields, not both")
         if cfg.k_steps < 1:
             raise ValueError(f"k_steps must be >= 1, got {cfg.k_steps}")
+        if (cfg.chunk_size or cfg.prefix_cache) and not cfg.paged:
+            raise ValueError("chunk_size / prefix_cache need paged=True")
+        if cfg.prefix_cache and not cfg.chunk_size:
+            cfg = dataclasses.replace(cfg, chunk_size=4 * cfg.block_size)
         self.model = model
         self.params = params
         self.cfg = cfg
+        self._mb = P.blocks_for(cfg.cache_len, cfg.block_size)       # blocks per slot
+        # one flash tile shape for every prefill: a chunk's rows then give
+        # the one-shot prefill's bits (PERF.md, decision a)
+        self._tiles = (4 * cfg.block_size, self._mb * cfg.block_size)
+        self._ctr_live0 = 0     # blocks out of the pool when the counters were zeroed
+        self._hold_blocks: set[int] = set()     # prefix-index and pending holds
         if cfg.paged:
-            self._mb = P.blocks_for(cfg.cache_len, cfg.block_size)   # blocks per slot
             self._num_blocks = cfg.num_blocks or cfg.slots * self._mb
         self._dispatch = make_decode_dispatch(model, cfg.sampling, cfg.k_steps,
-                                              paged=cfg.paged)
+                                              paged=cfg.paged, cow=cfg.prefix_cache)
+        if cfg.chunk_size:
+            self._dispatch_chunk = make_decode_dispatch(
+                model, cfg.sampling, cfg.k_steps, paged=True, cow=cfg.prefix_cache,
+                chunk=cfg.chunk_size, tiles=self._tiles)
+            self._index = PrefixIndex(cfg.block_size)
+            self._pcache = self._pstate = None  # the cache kept across serve calls
 
     # -- batched prefill + admission ------------------------------------------
 
@@ -153,8 +193,9 @@ class Engine:
         """Conservation of the block pool, checked on the device's state
         (one host fetch; for tests and checks): the free stack and the
         referenced blocks partition the pool, every block's refcount equals
-        its table references, and the counters account for every block out
-        of the free stack (popped - released == live)."""
+        its table references plus the prefix index's hold, and the counters
+        account for every block out of the free stack
+        (live0 + popped - released == live)."""
         bs = {k: cache[k].cpu() for k in P.BSTATE_KEYS}
         NB = self._num_blocks
         n_free = int(bs["n_free"])
@@ -166,11 +207,17 @@ class Engine:
         assert n_free + len(held) == NB, f"pool leak: {n_free} free + {len(held)} held != {NB}"
         tbl = bs["tbl"]
         counts = torch.bincount(tbl[tbl >= 0].long(), minlength=NB)
-        assert torch.equal(ref, counts.to(ref.dtype)), "refcounts differ from table references"
+        holds = torch.zeros(NB, dtype=counts.dtype)
+        holds[torch.tensor(sorted(self._hold_blocks), dtype=torch.long)] = 1
+        bad = (ref != counts + holds).nonzero().flatten().tolist()
+        assert not bad, "refcounts differ from table references + index holds: " + ", ".join(
+            f"block {b} ref {int(ref[b])} tables {int(counts[b])} hold {int(holds[b])}"
+            for b in bad)
         ctr = counter_totals({k: v.cpu() for k, v in state["ctr"].items()})
-        assert ctr["blocks_popped"] - ctr["blocks_released"] == NB - n_free, (
-            f"counter leak: popped {ctr['blocks_popped']} - released "
-            f"{ctr['blocks_released']} != live {NB - n_free}")
+        popped, released = ctr["blocks_popped"], ctr["blocks_released"]
+        assert self._ctr_live0 + popped - released == NB - n_free, (
+            f"counter leak: base {self._ctr_live0} + popped {popped} - released "
+            f"{released} != live {NB - n_free}")
 
     def _admit(self, cache, state, free_slots, prompts, gen_tokens, gen):
         """Prefill ``prompts`` into ``free_slots`` with one right-padded
@@ -186,7 +233,8 @@ class Engine:
         glens = None if min(lens) == Lmax else \
             torch.tensor(lens, dtype=torch.int32, device=dev)
         logits, part = self.model.prefill(self.params, {"tokens": toks},
-                                          cache_len=self._group_cache_len(Lmax), lengths=glens)
+                                          cache_len=self._group_cache_len(Lmax), lengths=glens,
+                                          tiles=self._tiles)
         first = sample(logits, gen, cfg.sampling)
         rem0 = gen_tokens - 1
         if cfg.paged:
@@ -208,6 +256,238 @@ class Engine:
                                          torch.tensor(free_slots, device=dev), first, rem0)
         return cache, state, [int(t) for t in first.tolist()]
 
+    # -- chunked / prefix-cached admission ------------------------------------
+
+    def _admit_chunk(self, cache, state, slot: int, ints: torch.Tensor, n_shared: int,
+                     n_new: int, n_retained: int, pf_start: int, shared_until: int,
+                     L: int, budget: int):
+        """Admit one request into ``slot`` for in-dispatch chunked prefill, in
+        place: no model forward here.  Release the slot's stale blocks, map
+        the shared (prefix-hit) blocks and pop fresh ones (``admit_slot``),
+        and arm the prompt buffer.  ``ints`` is one host-to-device transfer:
+        the ``-1``-padded shared block ids [blocks per slot], then the
+        prompt padded to ``cache_len``.  The first token is sampled inside
+        the dispatch when the last chunk lands.  Returns (cache, state,
+        popped ids [blocks per slot], ``-1`` padded)."""
+        B = state["active"].shape[0]
+        bstate = {k: cache[k] for k in P.BSTATE_KEYS}
+        nf0 = bstate["n_free"]
+        done = torch.zeros(B, dtype=torch.bool, device=nf0.device)
+        done[slot] = True
+        bstate = P.release_slots(bstate, done)
+        nf1 = bstate["n_free"]
+        bstate, new_ids = P.admit_slot(bstate, slot, ints[:self._mb], n_shared, n_new,
+                                       n_retained, self._mb)
+        cache.update(bstate)
+        cache["lengths"][slot] = pf_start
+        state["active"][slot] = False
+        state["remaining"][slot] = 0
+        state["prompt"][slot] = ints[self._mb:]
+        state["pf_pos"][slot] = pf_start
+        state["pf_len"][slot] = L
+        state["budget"][slot] = budget
+        state["pf_shared"][slot] = shared_until
+        # pf_start (not shared_until): the tokens actually skipped, the same
+        # quantity the host's stats["prefix_hits"] adds up
+        state["ctr"] = bump(state["ctr"], prefix_hit_tokens=pf_start,
+                            blocks_released=nf1 - nf0, blocks_popped=nf1 - bstate["n_free"])
+        return cache, state, new_ids
+
+    def _evict(self, cache, state, ids: list[int]):
+        """Drop the host holds on ``ids`` (eviction, duplicate unwind) and
+        count the blocks that reach the free stack, in place."""
+        ids_d = torch.tensor(ids, dtype=torch.int32).to(cache["n_free"].device)
+        nf0 = cache["n_free"]
+        cache.update(P.release_refs({k: cache[k] for k in P.BSTATE_KEYS}, ids_d))
+        state["ctr"] = bump(state["ctr"], blocks_released=cache["n_free"] - nf0)
+        self._hold_blocks.difference_update(ids)
+        return cache, state
+
+    def _serve_chunked(self, requests, gen_tokens: int, seed, stats: dict) -> list:
+        """The serve loop of a chunked (and prefix-cached) engine: admission
+        reserves each request's private worst case plus the index's holds
+        against the pool (with one spare block for a partial hit's
+        copy-on-write), evicting LRU cached blocks where the pool is short
+        rather than waiting; every dispatch while a slot prefills runs the
+        chunked dispatch; a prompt's new full blocks are registered in the
+        index once it has prefilled (a duplicate of an entry loses its hold
+        again).  The counters are read after the loop, so the releases that
+        follow the last dispatch count too."""
+        cfg, model = self.cfg, self.model
+        B, K, C, bs = cfg.slots, cfg.k_steps, cfg.chunk_size, cfg.block_size
+        NB, MB = self._num_blocks, self._mb
+        pcap, cap_rows = cfg.cache_len, MB * cfg.block_size
+        dev = model.device
+        for r in requests:
+            L = int(r.shape[0])
+            if L > pcap:
+                raise ValueError(f"chunked prefill streams prompts through the paged cache: "
+                                 f"prompt of {L} tokens exceeds cache_len {pcap}")
+            need = self._blocks_needed(L, gen_tokens)
+            if need > NB:
+                raise ValueError(f"request of {L} tokens needs {need} blocks but the pool "
+                                 f"has {NB}")
+        toks_np = [r.cpu().numpy() for r in requests]
+        if cfg.prefix_cache and self._pcache is not None:
+            cache, state = self._pcache, self._pstate
+            self._pcache = self._pstate = None
+        else:
+            cache = model.init_paged_cache(B, cfg.cache_len, block_size=bs, num_blocks=NB)
+            state = init_slot_state(B, dev, prompt_cap=pcap)
+        stats.update(cache_bytes=_tensor_bytes(cache), prefix_hits=0, prefix_evictions=0,
+                     chunk_dispatches=0)
+        # zero the counters for this serve; blocks the index still holds
+        # from an earlier serve are the conservation's base
+        state["ctr"] = init_counters(dev)
+        self._ctr_live0 = len(self._hold_blocks)
+        gen = torch.Generator(device=dev).manual_seed(cfg.seed if seed is None else seed)
+        index = self._index
+        queue = deque(range(len(requests)))
+        outputs: dict[int, list[int]] = {}
+        slot_rid = [-1] * B
+        slot_rem = [0] * B
+        slot_rsv = [0] * B                  # slot-private worst-case blocks
+        slot_pf = [0] * B                   # prompt tokens left to prefill (mirror)
+        slot_keys = [[] for _ in range(B)]  # pinned index keys per slot
+        slot_pend = [None] * B              # (tokens, first block, ids) to register
+
+        def drop_holds(ids):
+            nonlocal cache, state
+            cache, state = self._evict(cache, state, ids)
+
+        def try_evict(want: int) -> int:
+            ids = index.evict(want) if cfg.prefix_cache else []
+            if ids:
+                drop_holds(ids)
+                stats["prefix_evictions"] += len(ids)
+            return len(ids)
+
+        while queue or any(r >= 0 for r in slot_rid):
+            free = [s for s in range(B) if slot_rid[s] < 0]
+            t0 = time.perf_counter()
+            while queue and free:
+                rid = queue[0]
+                toks = toks_np[rid]
+                L = len(toks)
+                full, part_len = L // bs, L % bs
+                # A request's own pinned hits can crowd a tight pool (a warm
+                # partial hit needing its CoW spare with every block cached
+                # and pinned by itself).  With running slots admission waits
+                # for them; with an idle pool each retry unpins, evicts (its
+                # own matches included) and matches again, decaying toward a
+                # cold prefill, which the pool-size check guarantees fits.
+                fits = False
+                for _ in range(len(index) + 2):
+                    matched, partial_id, keys = [], None, []
+                    if cfg.prefix_cache:
+                        matched, partial_id, keys = index.match(toks)
+                        index.pin(keys)
+                    partial = partial_id is not None
+                    matched_tokens = L if partial else len(matched) * bs
+                    pf_start = min(matched_tokens, L - 1)
+                    new_full = full - len(matched)
+                    n_new = new_full + (1 if part_len and not partial else 0)
+                    shared = matched + ([partial_id] if partial else [])
+                    n_ret = new_full if cfg.prefix_cache else 0
+                    lifetime = min(P.blocks_for(min(L + gen_tokens - 1, cap_rows), bs), MB)
+                    cow_spare = 1 if partial and gen_tokens > 1 else 0
+                    slot_need = (n_new - n_ret) + lifetime - P.blocks_for(L, bs) + cow_spare
+                    demand = sum(slot_rsv) + len(self._hold_blocks) + slot_need + n_ret - NB
+                    if demand <= 0 or try_evict(demand) >= demand:
+                        fits = True
+                        break
+                    index.unpin(keys)
+                    if any(r >= 0 for r in slot_rid):
+                        break       # running slots will drain and unpin
+                    if try_evict(demand) == 0:
+                        break       # nothing cached left to reclaim
+                if not fits:
+                    break
+                s = free.pop(0)
+                queue.popleft()
+                ints = np.full(MB + pcap, -1, np.int32)
+                ints[:len(shared)] = shared
+                ints[MB:] = 0
+                ints[MB:MB + L] = toks
+                cache, state, new_ids = self._admit_chunk(
+                    cache, state, s, torch.from_numpy(ints).to(dev), len(shared), n_new, n_ret,
+                    pf_start, matched_tokens, L, gen_tokens - 1)
+                slot_rid[s], slot_rem[s], slot_rsv[s] = rid, gen_tokens, slot_need
+                slot_pf[s] = L - pf_start
+                slot_keys[s] = keys
+                outputs[rid] = []
+                stats["prefill_tokens"] += L - pf_start
+                stats["prefix_hits"] += pf_start     # tokens not recomputed
+                stats["prefill_calls"] += 1
+                if n_ret:
+                    ids = new_ids[:n_ret].tolist()
+                    stats["host_syncs"] += 1
+                    self._hold_blocks.update(ids)
+                    slot_pend[s] = (toks, len(matched), ids)
+                if cfg.check_invariants:
+                    self._assert_invariants(cache, state)
+            stats["prefill_s"] += time.perf_counter() - t0
+            if not any(r >= 0 for r in slot_rid):
+                assert not queue, "admission stalled with an idle pool"
+                continue
+
+            t0 = time.perf_counter()
+            chunked = any(p > 0 for p in slot_pf)
+            dispatch = self._dispatch_chunk if chunked else self._dispatch
+            state, cache, toks_d, emitted = dispatch(self.params, state, cache, gen)
+            host = torch.cat([toks_d.reshape(-1),
+                              emitted.reshape(-1).to(torch.int32)]).cpu().numpy()
+            stats["decode_s"] += time.perf_counter() - t0
+            toks_h = host[:B * K].reshape(B, K)
+            em_h = host[B * K:].reshape(B, K).astype(bool)
+            stats["host_syncs"] += 1
+            stats["dispatches"] += 1
+            stats["decode_steps"] += K
+            stats["chunk_dispatches"] += chunked
+            for s in range(B):
+                if slot_rid[s] < 0 or slot_pf[s] <= 0:
+                    continue
+                slot_pf[s] = max(0, slot_pf[s] - K * C)
+                if slot_pf[s] > 0 or slot_pend[s] is None:
+                    continue
+                # the slot's new full prompt blocks now hold their rows:
+                # publish them (a duplicate loses its hold and dies with
+                # the slot)
+                toks, first_block, ids = slot_pend[s]
+                slot_pend[s] = None
+                dups = index.register(toks, ids, first_block)
+                if dups:
+                    drop_holds(dups)
+                    slot_rsv[s] += len(dups)
+                keys = index.keys_for(toks, first_block + len(ids))[first_block:]
+                reg_keys = [k for k, b in zip(keys, ids) if b not in set(dups)]
+                index.pin(reg_keys)
+                slot_keys[s] = slot_keys[s] + reg_keys
+            if cfg.check_invariants:
+                self._assert_invariants(cache, state)
+            for s in range(B):
+                r = slot_rid[s]
+                if r < 0:
+                    continue
+                row = [int(t) for t in toks_h[s][em_h[s]]]
+                outputs[r].extend(row)
+                stats["tokens"] += len(row)
+                slot_rem[s] -= len(row)
+                if slot_rem[s] <= 0:
+                    assert slot_pend[s] is None, \
+                        "slot finished before its prompt finished prefilling"
+                    slot_rid[s], slot_rsv[s] = -1, 0
+                    index.unpin(slot_keys[s])
+                    slot_keys[s] = []
+
+        stats["counters"] = counter_totals(
+            dict(zip(COUNTER_KEYS, torch.stack([state["ctr"][k] for k in COUNTER_KEYS])
+                     .cpu().tolist())))
+        stats["host_syncs"] += 1
+        if cfg.prefix_cache:
+            self._pcache, self._pstate = cache, state
+        return [outputs[i] for i in sorted(outputs)]
+
     # -- serve ----------------------------------------------------------------
 
     def serve(self, requests, *, gen_tokens: int, seed: int | None = None,
@@ -226,6 +506,10 @@ class Engine:
                  "counters": dict.fromkeys(COUNTER_KEYS, 0)}
         if gen_tokens < 1 or not requests:
             return ([], stats) if return_stats else []
+        if cfg.chunk_size:
+            outs = self._serve_chunked(requests, gen_tokens, seed, stats)
+            return (outs, stats) if return_stats else outs
+        self._ctr_live0 = 0
         outputs: dict[int, list[int]] = {}
         if cfg.paged:
             for r in requests:

@@ -1,7 +1,7 @@
 """Paged KV cache: global block pool, per-slot block tables, a device free
-list and refcounts.
+list and refcounts (prefix sharing, copy-on-write).
 
-Port of the decode path of ``repro/engine/paged.py``.  The contiguous cache
+Port of ``repro/engine/paged.py`` without ``alloc_span`` (speculation).  The contiguous cache
 reserves ``cache_len`` rows per slot per layer; the paged cache replaces
 them with a **global pool of fixed-size token blocks** shared by all slots:
 
@@ -18,8 +18,19 @@ them with a **global pool of fixed-size token blocks** shared by all slots:
   slot's length crosses a block boundary and pushed back inside the K-step
   dispatch the moment a slot's budget drains, with no host round trip;
 * a **refcount** ``ref [num_blocks]``: one per table entry referencing the
-  block (the prefix cache, not ported yet, adds a host hold).  Conservation:
+  block, plus one while the host prefix index (``engine/prefix.py``) holds
+  it as a cached prompt block.  A prefix hit maps an existing block into a
+  new slot's table with ``ref += 1``; every release path decrements, and a
+  block returns to the free stack only at zero.  Conservation:
   ``n_free + |{b : ref[b] > 0}| == num_blocks``.
+
+**Copy-on-write**: a slot appends rows only to a block it owns alone.  A
+decode write landing in a block with ``ref > 1`` (a partly filled prompt
+block shared through the prefix cache) makes ``alloc_step(cow=True)`` pop a
+fresh block, rewire the entry, drop one reference on the shared block and
+report it as ``cow_src``, so the layer copies its rows before appending.
+Prefill-chunk writes never copy: a recomputed row whose block is shared is
+dropped (``span_targets``), as the cached row already holds its value.
 
 Every function here is shape-static device code with no host sync: no
 ``.item()``, no boolean-mask indexing, no tensor-valued ``if``.  The
@@ -161,6 +172,17 @@ def release_slots(bstate: dict, done: torch.Tensor) -> dict:
             "slot_active": active}
 
 
+def release_refs(bstate: dict, ids: torch.Tensor) -> dict:
+    """Drop one host hold per id in ``ids`` (``-1`` entries ignored) and free
+    the blocks reaching refcount zero: the prefix cache's eviction and the
+    duplicate-registration unwind.  Duplicate ids add up."""
+    free, n_free, ref = bstate["free"], bstate["n_free"], bstate["ref"]
+    NB = free.shape[0]
+    new_ref = _scatter_drop(ref, torch.where(ids >= 0, ids, NB), -1, add=True)
+    free, n_free = _free_newly_zero(free, n_free, ref, new_ref)
+    return {**bstate, "free": free, "n_free": n_free, "ref": new_ref}
+
+
 # ---------------------------------------------------------------------------
 # Admission-time allocation (called from the engine)
 # ---------------------------------------------------------------------------
@@ -189,6 +211,74 @@ def alloc_admit(bstate: dict, slots: torch.Tensor, counts: torch.Tensor, nbl: in
     n_free = n_free - counts.sum(dtype=_I32)
     active = bstate["slot_active"].clone().index_fill_(0, slots.long(), True)
     return {**bstate, "tbl": tbl, "ref": ref, "n_free": n_free, "slot_active": active}, wids
+
+
+def admit_slot(bstate: dict, slot, shared_ids: torch.Tensor, n_shared, n_new, n_retained,
+               nbl: int):
+    """Admit one request into ``slot`` for chunked / prefix-cached prefill.
+
+    The slot's table row becomes ``[shared_ids[:n_shared], <n_new popped
+    blocks>, NEG...]``: shared blocks (prefix hits) get ``ref += 1`` and take
+    no pool capacity; popped blocks get ``ref = 1``, the first
+    ``n_retained`` of them ``ref = 2`` (one table reference plus the prefix
+    index's prospective hold: the host registers their content once the
+    prompt has prefilled, and the hold keeps them alive if the slot drains
+    inside the same dispatch).  ``slot`` and the counts are Python ints or
+    0-d int tensors on the state's device.
+
+    The slot stays ``slot_active = False`` (prefill phase: decode writes go
+    to the trash block until its first token is sampled in the dispatch).
+    Returns ``(bstate, new_ids [nbl])``: the popped ids in table order,
+    ``-1`` padded, for the host to register."""
+    tbl, free, n_free, ref = bstate["tbl"], bstate["free"], bstate["n_free"], bstate["ref"]
+    NB = free.shape[0]
+    jj = torch.arange(nbl, dtype=_I32, device=tbl.device)
+    take = jj < n_new
+    pop_ids = torch.where(take, free[torch.clamp(n_free - 1 - jj, 0, NB - 1).long()], NEG)
+    row = torch.where(jj < n_shared, shared_ids, NEG)
+    sel = torch.clamp(jj - n_shared, 0, nbl - 1).long()
+    in_new = (jj >= n_shared) & (jj < n_shared + n_new)
+    row = torch.where(in_new, pop_ids[sel], row)
+    tbl = tbl.clone()
+    tbl[slot] = torch.cat([row, row.new_full((tbl.shape[1] - nbl,), NEG)])
+    ref = _scatter_drop(ref, torch.where(jj < n_shared, shared_ids, NB), 1, add=True)
+    ref = _scatter_drop(ref, torch.where(take, pop_ids, NB),
+                        torch.where(jj < n_retained, 2, 1).to(_I32))
+    active = bstate["slot_active"].clone()
+    active[slot] = False
+    return {**bstate, "tbl": tbl, "ref": ref, "n_free": n_free - n_new,
+            "slot_active": active}, pop_ids
+
+
+# ---------------------------------------------------------------------------
+# Prefill-chunk write routing (no allocation: admission preallocated)
+# ---------------------------------------------------------------------------
+
+def span_targets(bstate: dict, start: torch.Tensor, valid: torch.Tensor, width: int,
+                 block_size: int, cap: int, ring: bool, shared_until=None):
+    """Write targets for a prefill chunk: rows ``start[b] .. start[b] +
+    valid[b] - 1`` map through the slot's (preallocated) table row.
+
+    Returns ``(wblk [B, width], woff [B, width])``.  Rows past ``valid``,
+    past capacity or in unallocated entries go to the trash block, as do
+    rows below ``shared_until[b]``, the slot's prefix-hit watermark: those
+    positions live in blocks shared through the prefix cache (a matched row
+    recomputed only for its logits), whose cached rows already hold the
+    same values, so the write is dropped instead of touching a block other
+    owners read."""
+    tbl = bstate["tbl"]
+    B, MB = tbl.shape
+    NB = bstate["ref"].shape[0]
+    jj = torch.arange(width, dtype=_I32, device=tbl.device)[None, :]
+    pos = start[:, None] + jj
+    rpos = pos % cap if ring else pos
+    ok = (jj < valid[:, None]) & (rpos < cap)
+    if shared_until is not None:
+        ok = ok & (pos >= shared_until[:, None])
+    j = torch.clamp(rpos // block_size, 0, MB - 1).long()
+    blk = torch.gather(tbl, 1, j)
+    ok = ok & (blk >= 0)
+    return torch.where(ok, blk, NB), rpos % block_size
 
 
 # ---------------------------------------------------------------------------

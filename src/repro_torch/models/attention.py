@@ -3,7 +3,8 @@
 Port of the dense parts of ``repro/models/attention.py``.  Prefill runs the
 chunked online-softmax attention of ``models/flash.py``; decode runs one
 new token against a contiguous cache, or against the paged block pool
-through a block-table gather (``paged_decode_attention``).  GQA is computed in grouped form —
+through a block-table gather (``paged_decode_attention``); a prefill chunk
+runs against the paged pool the same way (``paged_prefill_attention``).  GQA is computed in grouped form —
 q is reshaped to [B, S, Kv, G, hd] and contracted against un-repeated k/v.
 """
 from __future__ import annotations
@@ -50,15 +51,18 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0, softcap: float 
 
     q [B,Sq,H,hd]; k,v [B,Skv,Kv,hd].  ``kv_lengths`` [B] masks kv padding;
     ``q_offsets`` / ``kv_offsets`` [B] place rows at global positions
-    ``off + i``.  Tile sizes default to ``runtime.flags``.  Returns
-    [B, Sq, H, hd] in q.dtype."""
+    ``off + i``.  Tile sizes default to ``runtime.flags``, cut to the
+    lengths; an explicit ``q_chunk`` / ``kv_chunk`` is kept as given (the
+    inputs are padded up to it), so two calls of different lengths run
+    tiles of one shape: the engine's chunked and one-shot prefills do
+    (``Engine._tiles``).  Returns [B, Sq, H, hd] in q.dtype."""
     from repro_torch.runtime import flags
     B, Sq, H, hd = q.shape
     Skv, Kv = k.shape[1], k.shape[2]
     G = H // Kv
     dev = q.device
-    cq = min(q_chunk or flags["q_chunk"], Sq)
-    ck = min(kv_chunk or flags["kv_chunk"], Skv)
+    cq = q_chunk or min(flags["q_chunk"], Sq)
+    ck = kv_chunk or min(flags["kv_chunk"], Skv)
     nq, nk = -(-Sq // cq), -(-Skv // ck)
     pq, pk = nq * cq - Sq, nk * ck - Skv
     qg = q.reshape(B, Sq, Kv, G, hd)
@@ -120,6 +124,45 @@ def write_paged_kv(pk, pv, k_new, v_new, wblk, woff):
     pk[wblk, woff] = k_new[:, 0].to(pk.dtype)
     pv[wblk, woff] = v_new[:, 0].to(pv.dtype)
     return pk, pv
+
+
+def write_paged_kv_span(pk, pv, k_new, v_new, wblk, woff):
+    """Write a prefill chunk's kv rows [B,C,Kv,hd] into the block pools at
+    per-row targets (``wblk`` / ``woff`` [B,C] from
+    ``engine.paged.span_targets``; pad rows, capacity overflows and rows of
+    shared blocks point at the trash block), in place."""
+    pk[wblk, woff] = k_new.to(pk.dtype)
+    pv[wblk, woff] = v_new.to(pv.dtype)
+    return pk, pv
+
+
+def paged_prefill_attention(q, pk, pv, k_new, v_new, tbl, start, valid, *, window: int = 0,
+                            softcap: float = 0.0, q_chunk: int = 0,
+                            kv_chunk: int = 0) -> torch.Tensor:
+    """Prefill-chunk attention against the paged cache.
+
+    q / k_new / v_new [B,C,{H|Kv},hd] are the chunk's rows at global
+    positions ``start[b] + j`` (rows ``j >= valid[b]`` are pads); the pools
+    and ``tbl`` are the paged cache before the chunk's rows are written.
+    The kv buffer is the table's gather overlaid with the fresh rows, so
+    each query row attends exactly the prefix ``[0, pos]``; with the tiles
+    of a one-shot prefill (``q_chunk`` / ``kv_chunk``) a row's result is
+    the one-shot prefill's, as a masked kv row and a fully masked tile
+    leave the online softmax unchanged.  Linear tables only (sliding-window
+    rings are not ported)."""
+    if window:
+        raise NotImplementedError("sliding-window (ring) caches are not ported yet")
+    from repro_torch.engine.paged import gather_blocks
+    C = k_new.shape[1]
+    gk, gv = gather_blocks(pk, tbl), gather_blocks(pv, tbl)
+    pos = torch.arange(gk.shape[1], device=q.device)[None]
+    rel = pos - start[:, None]                                  # [B, cap]
+    fm = ((rel >= 0) & (rel < C))[..., None, None]
+    idx = rel.clamp(0, C - 1).long()[..., None, None].expand(-1, -1, *k_new.shape[2:])
+    gk = torch.where(fm, torch.gather(k_new, 1, idx), gk.to(k_new.dtype))
+    gv = torch.where(fm, torch.gather(v_new, 1, idx), gv.to(v_new.dtype))
+    return chunked_attention(q, gk, gv, causal=True, softcap=softcap, q_offsets=start,
+                             kv_lengths=start + valid, q_chunk=q_chunk, kv_chunk=kv_chunk)
 
 
 def paged_decode_attention(q, pk, pv, tbl, lengths, *, window: int = 0,

@@ -11,7 +11,9 @@ reference's buffer donation).  The paged decode cache (``init_paged_cache``,
 ``decode_step_paged``) holds per-layer K/V block pools
 ``[n_layers, num_blocks + 1, block_size, Kv, hd]`` under
 ``cache["stack"]["L0"]`` and the allocator state of ``engine/paged.py`` at
-the cache's top level, as the reference's does.
+the cache's top level, as the reference's does; ``prefill_chunk_paged``
+runs one piece of each slot's prompt through that cache (chunked prefill,
+prefix-hit tails).
 """
 from __future__ import annotations
 
@@ -96,13 +98,23 @@ def _attn_decode_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelConfig):
     Kv, hd]): as :func:`_attn_decode` for every active slot, the new K/V
     written in place at the step's write target (``pctx["wblk"]`` /
     ``["woff"]``, trash for inactive slots) and attention over the block
-    table's gather."""
+    table's gather.
+
+    With ``pctx["cow_src"]`` (prefix caching) the write block first takes
+    the rows of its copy-on-write source.  The reference skips that copy
+    with a branch on whether any slot copies; a tensor-valued branch would
+    synchronize the host, so here the copy always runs: where nothing is
+    shared ``cow_src == wblk``, and copying a block onto itself changes no
+    bit."""
     B = x.shape[0]
     lengths = pctx["lengths"]
     q, k, v = A.qkv_proj(p, x, cfg)
     if cfg.rope_theta > 0:
         cos, sin = rope_cos_sin(lengths[:, None], cfg.resolved_head_dim, cfg.rope_theta)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    if "cow_src" in pctx:
+        for pool in (cache["pk"], cache["pv"]):
+            pool[pctx["wblk"]] = pool[pctx["cow_src"]]
     A.write_paged_kv(cache["pk"], cache["pv"], k, v, pctx["wblk"], pctx["woff"])
     out = A.paged_decode_attention(q, cache["pk"], cache["pv"], pctx["tbl"], lengths,
                                    window=cfg.sliding_window,
@@ -116,9 +128,35 @@ def apply_layer_decode_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelConf
     return x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm_eps))
 
 
-def apply_layer_prefill(p: dict, x, cache: dict, cfg: ModelConfig):
+def _attn_prefill_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelConfig):
+    """Self-attn over one prefill chunk against the layer's block pools: the
+    chunk's rows (global positions ``start[b] + j``) attend the slot's
+    cached prefix and themselves, then land in the pools at the span
+    targets (pads, overflows and shared blocks go to the trash block)."""
+    B, C, _ = x.shape
+    q, k, v = A.qkv_proj(p, x, cfg)
+    if cfg.rope_theta > 0:
+        pos = pctx["start"][:, None] + torch.arange(C, device=x.device)[None]
+        cos, sin = rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    out = A.paged_prefill_attention(q, cache["pk"], cache["pv"], k, v, pctx["tbl"],
+                                    pctx["start"], pctx["valid"], window=cfg.sliding_window,
+                                    softcap=cfg.attn_logit_softcap, q_chunk=pctx["q_chunk"],
+                                    kv_chunk=pctx["kv_chunk"])
+    A.write_paged_kv_span(cache["pk"], cache["pv"], k, v, pctx["wblk"], pctx["woff"])
+    return qlinear.matmul(out.reshape(B, C, -1), p["wo"])
+
+
+def apply_layer_prefill_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelConfig):
+    x = x + _attn_prefill_paged(p["attn"], apply_norm(p["ln1"], x, cfg.norm_eps), cache,
+                                pctx, cfg)
+    return x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm_eps))
+
+
+def apply_layer_prefill(p: dict, x, cache: dict, cfg: ModelConfig, tiles=(0, 0)):
     """Pre-norm residual layer over a whole prompt; writes the layer's K/V
-    into ``cache`` (views [B, cache_len, Kv, hd]) in place."""
+    into ``cache`` (views [B, cache_len, Kv, hd]) in place.  ``tiles`` are
+    the flash tiles ``(q_chunk, kv_chunk)``, 0 for the defaults."""
     B, S, _ = x.shape
     q, k, v = A.qkv_proj(p["attn"], apply_norm(p["ln1"], x, cfg.norm_eps), cfg)
     if cfg.rope_theta > 0:
@@ -126,7 +164,8 @@ def apply_layer_prefill(p: dict, x, cache: dict, cfg: ModelConfig):
         cos, sin = rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     out = A.chunked_attention(q, k, v, causal=True, window=cfg.sliding_window,
-                              softcap=cfg.attn_logit_softcap)
+                              softcap=cfg.attn_logit_softcap, q_chunk=tiles[0],
+                              kv_chunk=tiles[1])
     x = x + qlinear.matmul(out.reshape(B, S, -1), p["attn"]["wo"])
     sc = cache["k"].shape[1]
     cache["k"][:, :S] = k[:, :sc].to(cache["k"].dtype)
@@ -163,10 +202,12 @@ class Model:
 
     @torch.no_grad()
     def prefill(self, params: dict, batch: dict, cache_len: int | None = None,
-                lengths: torch.Tensor | None = None):
+                lengths: torch.Tensor | None = None, tiles: tuple[int, int] = (0, 0)):
         """``batch["tokens"]`` [B, S] -> (last-token logits [B, V], cache).
         ``lengths`` [B] marks per-row true lengths of a right-padded batch
-        (exact for causal attention: pad rows never feed real rows)."""
+        (exact for causal attention: pad rows never feed real rows);
+        ``tiles`` fixes the flash tiles (``A.chunked_attention``'s
+        ``q_chunk``, ``kv_chunk``; 0 for the defaults)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -175,7 +216,7 @@ class Model:
         stack = params["stack"]["L0"]
         for i in range(n_stacked(stack)):
             x = apply_layer_prefill(layer_view(stack, i), x,
-                                    layer_view(cache["stack"]["L0"], i), cfg)
+                                    layer_view(cache["stack"]["L0"], i), cfg, tiles)
         x = apply_norm(params["final_norm"], x, cfg.norm_eps)
         logits = last_token_logits(params["embed"], x, lengths)
         cache["lengths"] = (torch.full((B,), S, dtype=torch.int32, device=tokens.device)
@@ -215,21 +256,27 @@ class Model:
                                    self.device)}
 
     @torch.no_grad()
-    def decode_step_paged(self, params: dict, tokens: torch.Tensor, cache: dict):
+    def decode_step_paged(self, params: dict, tokens: torch.Tensor, cache: dict,
+                          cow: bool = False):
         """tokens [B, 1] -> (logits [B, V], paged cache with lengths + 1).
         The step's block allocation and write targets (``alloc_step``) are
         computed once and shared by every layer; the pools are written in
-        place, the allocator state is returned new."""
+        place, the allocator state is returned new.  With ``cow=True``
+        (prefix caching) a write landing in a shared block pops a private
+        copy first, and each layer copies the block's rows into it."""
         from repro_torch.engine.paged import BSTATE_KEYS, alloc_step
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens)
         lengths = cache["lengths"]
         pools = cache["stack"]["L0"]
         bs = pools["pk"].shape[2]
-        bstate, wblk, woff, _ = alloc_step({k: cache[k] for k in BSTATE_KEYS}, lengths, bs,
-                                           cache["tbl"].shape[1] * bs, ring=False)
+        bstate, wblk, woff, cow_src = alloc_step({k: cache[k] for k in BSTATE_KEYS}, lengths,
+                                                 bs, cache["tbl"].shape[1] * bs, ring=False,
+                                                 cow=cow)
         pctx = {"lengths": lengths, "tbl": bstate["tbl"], "wblk": wblk.long(),
                 "woff": woff.long()}
+        if cow:
+            pctx["cow_src"] = cow_src.long()
         stack = params["stack"]["L0"]
         for i in range(n_stacked(stack)):
             x = apply_layer_decode_paged(layer_view(stack, i), x, layer_view(pools, i),
@@ -237,6 +284,42 @@ class Model:
         x = apply_norm(params["final_norm"], x, cfg.norm_eps)
         logits = lm_logits(params["embed"], x)[:, 0]
         return logits, {**cache, **bstate, "lengths": lengths + 1}
+
+    @torch.no_grad()
+    def prefill_chunk_paged(self, params: dict, tokens: torch.Tensor, cache: dict,
+                            start: torch.Tensor, valid: torch.Tensor, shared_until=None,
+                            tiles: tuple[int, int] = (0, 0)):
+        """One prefill chunk through the paged cache (chunked prefill, or the
+        recomputed tail of a prefix hit).  ``tokens`` [B, C] are rows
+        ``start[b] .. start[b] + valid[b] - 1`` of each slot's prompt
+        (``valid[b] == 0`` leaves the slot as it was); ``shared_until`` [B]
+        is each slot's prefix-hit watermark (rows below it lie in shared
+        blocks and are not written: the cached rows hold the same values);
+        ``tiles`` are the flash tiles, as in :meth:`prefill`.  Returns the
+        logits of each slot's last valid row (garbage where ``valid == 0``)
+        and the cache with the chunk's K/V written in place and ``lengths``
+        advanced to ``start + valid``."""
+        from repro_torch.engine.paged import BSTATE_KEYS, span_targets
+        cfg = self.cfg
+        B, C = tokens.shape
+        x = embed_tokens(params["embed"], tokens)
+        start, valid = start.to(torch.int32), valid.to(torch.int32)
+        pools = cache["stack"]["L0"]
+        bs = pools["pk"].shape[2]
+        wblk, woff = span_targets({k: cache[k] for k in BSTATE_KEYS}, start, valid, C, bs,
+                                  cache["tbl"].shape[1] * bs, False, shared_until)
+        pctx = {"start": start, "valid": valid, "tbl": cache["tbl"], "wblk": wblk.long(),
+                "woff": woff.long(), "q_chunk": tiles[0], "kv_chunk": tiles[1]}
+        stack = params["stack"]["L0"]
+        for i in range(n_stacked(stack)):
+            x = apply_layer_prefill_paged(layer_view(stack, i), x, layer_view(pools, i),
+                                          pctx, cfg)
+        x = apply_norm(params["final_norm"], x, cfg.norm_eps)
+        idx = (valid - 1).clamp(0, C - 1).long()
+        xg = x[torch.arange(B, device=x.device), idx][:, None]
+        logits = lm_logits(params["embed"], xg)[:, 0]
+        return logits, {**cache, "lengths": torch.where(valid > 0, start + valid,
+                                                         cache["lengths"])}
 
 
 def build_model(cfg: ModelConfig, device=None) -> Model:

@@ -1,14 +1,16 @@
 """Device-resident engine counters, riding the slot state.
 
-Port of the token and allocator counters of ``repro/telemetry/counters.py``.
+Port of the token, allocator, prefix-cache and chunked-prefill counters of
+``repro/telemetry/counters.py`` (the speculation keys are not ported yet).
 The counters are int32 scalars on the device, held in ``state["ctr"]`` and
-bumped inside the decode dispatch (and the paged admission) where each
-event happens; the host reads them in the same transfer that drains the
+bumped inside the decode dispatch (and the paged admission and eviction)
+where each event happens; the host reads them in the same transfer that drains the
 token grid — no extra sync.  Allocator pops and releases are measured as
 ``n_free`` / ``ref`` deltas around the ``engine/paged.py`` primitives.
 
 Conservation (asserted by ``Engine(check_invariants=True)``):
-``blocks_popped - blocks_released == num_blocks - n_free``.
+``live0 + blocks_popped - blocks_released == num_blocks - n_free``, where
+``live0`` is the blocks the prefix index held when the serve began.
 """
 from __future__ import annotations
 
@@ -24,6 +26,11 @@ COUNTER_KEYS = (
                          # drains, zero-budget and stale-slot releases)
     "cow_copies",        # copy-on-write pops (a write into a shared block
                          # popped a private copy first)
+    "prefix_hit_tokens", # prompt tokens served from the prefix cache,
+                         # counted at admission as pf_start, the tokens
+                         # actually skipped (== host stats["prefix_hits"])
+    "chunk_pieces",      # in-dispatch prefill chunk pieces run
+    "chunks_completed",  # prompts that finished in-dispatch prefill
 )
 
 

@@ -94,6 +94,47 @@ def test_prefill_takes_wgmma_and_decode_the_decode_route(monkeypatch):
     assert seen == ["decode"] * (7 * cfg.n_layers + 1)
 
 
+@pytest.mark.parametrize("slots,chunk,want", [(2, 8, "wgmma"), (8, 64, "wgmma"),
+                                              (1, 8, "decode")])
+def test_chunk_substep_routes_by_slots_times_chunk(monkeypatch, slots, chunk, want):
+    """A chunked-prefill sub-step runs every slot's piece in one batch, so
+    each of a layer's seven products sees ``slots * chunk`` rows: the wgmma
+    route from ``TC_MIN_ROWS`` (16) on, the decode route below; the LM head
+    (one row per slot) takes the decode route.  A copy-on-write decode step
+    routes as a plain one."""
+    from repro_torch.engine.paged import admit_slot
+    cfg = dataclasses.replace(get_arch("glm4-9b"), n_layers=2, d_model=256, n_heads=2,
+                              n_kv_heads=1, head_dim=128, d_ff=512, vocab_size=512)
+    model = build_model(cfg, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    post = model.init(g)
+    qparams, _ = quantize(post, post, QuantConfig(), mode="storage")
+    cache = model.init_paged_cache(slots, 2 * chunk, block_size=16,
+                                   num_blocks=slots * -(-2 * chunk // 16))
+    mb = cache["tbl"].shape[1]
+    for s in range(slots):
+        bstate, _ = admit_slot({k: cache[k] for k in ("tbl", "free", "n_free", "ref",
+                                                      "slot_active")},
+                               s, torch.full((mb,), -1, dtype=torch.int32), 0, mb, 0, mb)
+        cache.update(bstate)
+    seen = []
+    real = TMM.matmul_fp8_2d
+
+    def spy(x, wq, scales, *, block=128):
+        seen.append(route(x.shape[0], wq.shape[1], wq.shape[0], block, x.dtype))
+        return real(x, wq, scales, block=block)
+
+    monkeypatch.setattr(TMM, "matmul_fp8_2d", spy)
+    tokens = torch.randint(0, cfg.vocab_size, (slots, chunk), generator=g)
+    zeros = torch.zeros(slots, dtype=torch.int32)
+    _, cache = model.prefill_chunk_paged(qparams, tokens, cache, zeros, zeros + chunk,
+                                         tiles=(chunk, 2 * chunk))
+    assert seen == [want] * (7 * cfg.n_layers) + ["decode"]
+    seen.clear()
+    model.decode_step_paged(qparams, tokens[:, :1], cache, cow=True)
+    assert seen == ["decode"] * (7 * cfg.n_layers + 1)
+
+
 @pytest.mark.parametrize("M", [TC_MIN_ROWS - 1, TC_MIN_ROWS, 130])
 def test_plain_version_matches_pallas_across_the_route_threshold(M):
     rng = np.random.default_rng(M)
