@@ -1103,21 +1103,23 @@ def dispatch_sync_sites(torch, engine, requests) -> list[str]:
     return sorted(sites)
 
 
-def prefill_batch_bits(torch, model, qparams, requests) -> str:
+def prefill_batch_bits(torch, model, qparams, requests, tiles=(0, 0)) -> str:
     """Whether a prompt's prefill depends on its admission group on the
     card: the shortest request prefilled alone and right-padded beside the
-    longest, its last-token logits and its K rows compared bit for bit."""
+    longest, at the flash tiles ``tiles`` (0: the defaults, cut to each
+    call's length), its last-token logits and its K rows compared bit for
+    bit."""
     import torch.nn.functional as F
     lens = [int(r.shape[0]) for r in requests]
     a, b = requests[lens.index(min(lens))], requests[lens.index(max(lens))]
     L = a.shape[0]
-    la, ca = model.prefill(qparams, {"tokens": a[None]})
+    la, ca = model.prefill(qparams, {"tokens": a[None]}, tiles=tiles)
     lb, cb = model.prefill(qparams, {"tokens": torch.stack([F.pad(a, (0, b.shape[0] - L)), b])},
                            lengths=torch.tensor([L, b.shape[0]], dtype=torch.int32,
-                                                device=a.device))
+                                                device=a.device), tiles=tiles)
     ka, kb = ca["stack"]["L0"]["k"][:, 0, :L], cb["stack"]["L0"]["k"][:, 0, :L]
     return (f"the {L}-token request prefilled alone vs right-padded beside the "
-            f"{b.shape[0]}-token one: logits max |diff| "
+            f"{b.shape[0]}-token one, flash tiles {tiles}: logits max |diff| "
             f"{(la[0].float() - lb[0].float()).abs().max().item():.4g}, same argmax "
             f"{bool(la[0].argmax() == lb[0].argmax())}, K rows differing in "
             f"{int((ka != kb).sum())} of {ka.numel()} values")
@@ -1152,9 +1154,10 @@ def paged_phase(torch, args, model, qparams) -> dict:
     Both paged serves hold the fp8 routes' launches to the main path's
     formula.  Then one dispatch of each engine under the sync debug mode:
     the paged dispatch adds no synchronizing operation to the contiguous
-    one's (``"warn"``), and each runs under ``"error"``.  ``prefill_batch_bits`` shows what the pressure run's
-    other admission groups change.  Returns the engines and requests for
-    the phase-8 breakdown."""
+    one's (``"warn"``), and each runs under ``"error"``.
+    ``prefill_batch_bits`` shows what another admission group changes in a
+    prefill, at the default flash tiles and at the engines' fixed ones.
+    Returns the engines and requests for the phase-8 breakdown."""
     from repro_torch.engine import Engine
     cfg = model.cfg
     g = torch.Generator().manual_seed(args.seed + 3)
@@ -1207,7 +1210,8 @@ def paged_phase(torch, args, model, qparams) -> dict:
                              "contiguous engine's")
     if runs["pressure"][1]["prefill_calls"] <= runs["parity"][1]["prefill_calls"]:
         raise AssertionError("paged phase: the pressure run did not wait on the pool")
-    log(f"paged phase: {prefill_batch_bits(torch, model, qparams, requests)}")
+    for tiles in ((0, 0), engines["parity"]._tiles):
+        log(f"paged phase: {prefill_batch_bits(torch, model, qparams, requests, tiles)}")
 
     sites = {name: dispatch_sync_sites(torch, engines[name], requests)
              for name in ("contiguous", "parity")}

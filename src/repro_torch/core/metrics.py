@@ -21,11 +21,11 @@ _DEN_MAX = (2 ** 23 - 1) * 2.0 ** -149   # the largest float32 denormal
 
 
 def daz(x: torch.Tensor) -> torch.Tensor:
-    """float32 ``x`` with every denormal read as a zero of its sign, as
-    XLA's CPU backend reads a float32 operand (denormals are zero): the
-    reference's quantize sees a denormal weight as ±0.  NaN and ±inf are
-    kept."""
-    return x * (x.abs() >= _TINY).logical_or_(x.isnan())
+    """float32 or bfloat16 ``x`` with every denormal read as a zero of its
+    sign, as XLA's CPU backend reads a float32 operand (denormals are
+    zero): the reference's quantize sees a denormal weight as ±0.  NaN
+    (times 0) and ±inf are kept."""
+    return x * (x.abs() >= _TINY)
 
 
 def sign(x: torch.Tensor) -> torch.Tensor:

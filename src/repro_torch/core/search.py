@@ -67,7 +67,7 @@ def search_scale(w_post: torch.Tensor, w_base: torch.Tensor,
     search reads them."""
     if qcfg.per_block_alpha:
         raise NotImplementedError("per_block_alpha is not ported to repro_torch yet")
-    w_post, w_base = M.daz(w_post.float()), M.daz(w_base.float())
+    w_post, w_base = M.daz(w_post).float(), M.daz(w_base).float()
     if qcfg.use_fused_kernel and qcfg.granularity == "block" \
             and qcfg.fmt == "fp8_e4m3":
         return _search_fused(w_post, w_base, qcfg)

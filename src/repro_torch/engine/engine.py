@@ -460,7 +460,8 @@ class Engine:
                     drop_holds(dups)
                     slot_rsv[s] += len(dups)
                 keys = index.keys_for(toks, first_block + len(ids))[first_block:]
-                reg_keys = [k for k, b in zip(keys, ids) if b not in set(dups)]
+                dup_set = set(dups)
+                reg_keys = [k for k, b in zip(keys, ids) if b not in dup_set]
                 index.pin(reg_keys)
                 slot_keys[s] = slot_keys[s] + reg_keys
             if cfg.check_invariants:
