@@ -1,9 +1,10 @@
 """Paged KV cache: global block pool, per-slot block tables, a device free
 list and refcounts (prefix sharing, copy-on-write).
 
-Port of ``repro/engine/paged.py`` without ``alloc_span`` (speculation).  The contiguous cache
-reserves ``cache_len`` rows per slot per layer; the paged cache replaces
-them with a **global pool of fixed-size token blocks** shared by all slots:
+Port of ``repro/engine/paged.py`` without ``alloc_span`` (speculation).
+The contiguous cache reserves ``cache_len`` rows per slot per layer; the
+paged cache replaces them with a **global pool of fixed-size token blocks**
+shared by all slots:
 
 * per layer, ``pk`` / ``pv`` pools ``[num_blocks + 1, block_size, Kv, hd]``
   (stacked over layers by ``models/lm.py``); the extra last block is a
@@ -223,8 +224,7 @@ def admit_slot(bstate: dict, slot, shared_ids: torch.Tensor, n_shared, n_new, n_
     ``n_retained`` of them ``ref = 2`` (one table reference plus the prefix
     index's prospective hold: the host registers their content once the
     prompt has prefilled, and the hold keeps them alive if the slot drains
-    inside the same dispatch).  ``slot`` and the counts are Python ints or
-    0-d int tensors on the state's device.
+    inside the same dispatch).  ``slot`` and the counts are Python ints.
 
     The slot stays ``slot_active = False`` (prefill phase: decode writes go
     to the trash block until its first token is sampled in the dispatch).

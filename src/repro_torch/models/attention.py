@@ -4,8 +4,9 @@ Port of the dense parts of ``repro/models/attention.py``.  Prefill runs the
 chunked online-softmax attention of ``models/flash.py``; decode runs one
 new token against a contiguous cache, or against the paged block pool
 through a block-table gather (``paged_decode_attention``); a prefill chunk
-runs against the paged pool the same way (``paged_prefill_attention``).  GQA is computed in grouped form —
-q is reshaped to [B, S, Kv, G, hd] and contracted against un-repeated k/v.
+runs against the paged pool the same way (``paged_prefill_attention``).
+GQA is computed in grouped form — q is reshaped to [B, S, Kv, G, hd] and
+contracted against un-repeated k/v.
 """
 from __future__ import annotations
 
