@@ -58,12 +58,24 @@ Phases:
      copy-on-write block, warm == cold token for token, the fp8 launch
      counts of the chunked serves, one chunked dispatch under the sync
      debug mode, and the chunked-vs-one-shot agreement;
+  7d. self-speculative decoding (``spec_phase``): phase 5's bf16 tree
+     verifying, ``n_spec=4``: phase 6's requests without speculation (the
+     baseline), with the DAQ draft (dynamic depth, then pinned) and with
+     an AbsMax draft; phase 7c's requests composed with chunked prefill
+     and the prefix cache, cold then warm; conservation, ``drafted ==
+     accepted + rejected``, the decode route's launches (the draft steps
+     only), first tokens equal to the baseline's, the speculative serves
+     equal to each other, a copy-on-write, warm == cold, one speculative
+     and one composed dispatch under the sync debug mode; it prints the
+     acceptance rates, each serve's tok/s, the agreement with the
+     baseline, and how a verify row's bits differ from a decode step's;
   8. break one decode step, one prefill and one quantize (GLM-4-9B cut to
      4 layers at full width) down: host time, device busy time, kernel
      launches, the decode route's device time and the kernels that take
      the device time (the quantizer's always listed); one paged decode
-     step beside a contiguous one at the paged phase's state; and one
-     chunked dispatch beside a plain paged one at one state.
+     step beside a contiguous one at the paged phase's state; one chunked
+     dispatch beside a plain paged one at one state; and one speculative
+     round, its draft steps and its verify at phase 7d's state.
 
 It exits non-zero if any phase fails and when no CUDA device is present.
 The last line of stdout is the JSON object
@@ -98,6 +110,9 @@ PAGED_REQUESTS, PAGED_CACHE_LEN, BLOCK, PRESSURE_BLOCKS = 16, 560, 16, 120
 # partial-tail hit, so a copy-on-write decode write); chunks of 64 tokens,
 # so each chunk product has SLOTS * 64 = 512 rows (the wgmma route)
 SYSTEM_PROMPT, SUFFIX_MIN, SUFFIX_MAX, CHUNK = 128, 16, 368, 64
+# the speculative phase: up to 4 draft tokens a round, so a round verifies
+# SLOTS * 5 = 40 rows of the bf16 tree
+N_SPEC = 4
 
 
 def log(*a):
@@ -929,7 +944,7 @@ def fp32_model_agreement(torch, seed: int) -> dict:
     return launches
 
 
-def main_path(torch, args, records: dict) -> None:
+def main_path(torch, args, records: dict):
     from repro_torch.configs import QuantConfig, get_arch
     from repro_torch.engine import Engine
     from repro_torch.kernels._lib import KERNELS
@@ -962,7 +977,7 @@ def main_path(torch, args, records: dict) -> None:
     torch.cuda.synchronize()
     quant_s = time.perf_counter() - t0
     quant_peak = torch.cuda.max_memory_allocated() / 1e9
-    del post, base
+    del base        # post stays: phase 7d's verifier
     torch.cuda.empty_cache()
     engine = Engine(model, qparams, slots=SLOTS, cache_len=PROMPT + GEN, k_steps=K_STEPS)
     t0 = time.perf_counter()
@@ -1022,7 +1037,7 @@ def main_path(torch, args, records: dict) -> None:
             raise AssertionError(f"DAQ sign rate below AbsMax on {name}")
     log(f"outputs: {len(outputs)} rows of {GEN} tokens in range; first row "
         f"{outputs[0][:12]}...")
-    return model, qparams, torch.stack(requests)
+    return model, post, qparams, torch.stack(requests)
 
 
 def fp8_serve_launches(stats: dict, n_layers: int) -> dict:
@@ -1267,11 +1282,13 @@ def prefix_requests(torch, args, vocab: int, device) -> list:
     return [r.to(device) for r in requests]
 
 
-def first_chunked_dispatch_under_error_mode(torch, engine) -> list:
-    """Wrap ``engine``'s chunked dispatch so that its first call runs under
-    ``set_sync_debug_mode("error")`` (any synchronizing operation raises);
-    returns a list that holds one entry once that call has run."""
-    real, ran = engine._dispatch_chunk, []
+def first_chunked_dispatch_under_error_mode(torch, engine,
+                                            attr: str = "_dispatch_chunk") -> list:
+    """Wrap ``engine``'s chunked dispatch (its attribute ``attr``) so that
+    its first call runs under ``set_sync_debug_mode("error")`` (any
+    synchronizing operation raises); returns a list that holds one entry
+    once that call has run."""
+    real, ran = getattr(engine, attr), []
 
     def dispatch(*a):
         if ran:
@@ -1285,7 +1302,7 @@ def first_chunked_dispatch_under_error_mode(torch, engine) -> list:
         ran.append(True)
         return out
 
-    engine._dispatch_chunk = dispatch
+    setattr(engine, attr, dispatch)
     return ran
 
 
@@ -1381,6 +1398,233 @@ def prefix_phase(torch, args, model, qparams) -> dict:
     log('prefix phase: one chunked, prefix-cached dispatch ran under '
         'set_sync_debug_mode("error")')
     return {"requests": requests}
+
+
+# ---------------------------------------------------------------------------
+# The speculative phase: a DAQ-fp8 draft and the bf16 verifier at full width
+# ---------------------------------------------------------------------------
+
+def fp8_spec_launches(stats: dict, n_layers: int) -> dict:
+    """The fp8 routes' launches of a speculative serve with a bf16 verifier:
+    each round's N_SPEC draft steps run the quantized tree at one row a slot
+    (the decode route: seven products a layer and the LM head); the
+    verify, the prefills and the chunk pieces are bf16 products."""
+    return {"fp8_matmul_wgmma": 0,
+            "fp8_matmul_decode": (7 * n_layers + 1) * N_SPEC * K_STEPS * stats["dispatches"],
+            "fp8_matmul": 0}
+
+
+def spec_dispatch_under_error_mode(torch, engine, requests) -> None:
+    """One K-round speculative dispatch of ``engine`` after its first
+    admission under ``set_sync_debug_mode("error")``."""
+    cache, state, gen = admitted(torch, engine, requests)
+    depth = torch.full((), N_SPEC, dtype=torch.int32, device=engine.model.device)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        engine._dispatch_spec(engine.params, engine.draft_params, state, cache, depth, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def verify_decode_bits(torch, engine, requests, outputs) -> str:
+    """What decides decision (b) of PERF.md on the card: at ``engine``'s
+    first admission (8 slots at 128 tokens) the bf16 tree's verify of the
+    next 5 greedy tokens of ``outputs`` against 5 decode steps on them
+    (logits bit for bit, per row: values differing, max |diff|, argmax
+    equal), and each bf16 product of layer 0 and the LM head at 40 rows
+    against its first 8 rows alone."""
+    model, C = engine.model, N_SPEC + 1
+    cache, state, _ = admitted(torch, engine, requests)
+    toks = torch.tensor([o[:C] for o in outputs], dtype=torch.int32, device=model.device)
+    vlog, _ = model.verify_chunk_paged(engine.params, toks, clone_tree(cache),
+                                       cache["lengths"], torch.full_like(cache["lengths"], C))
+    rows = []
+    for j in range(C):
+        dlog, cache = model.decode_step_paged(engine.params, toks[:, j:j + 1], cache)
+        v = vlog[:, j]
+        rows.append(f"row {j}: {int((v != dlog).sum())} of {v.numel()} differ, max |diff| "
+                    f"{(v.float() - dlog.float()).abs().max().item():.4g}, argmax equal in "
+                    f"{int((v.argmax(-1) == dlog.argmax(-1)).sum())} of {v.shape[0]}")
+    stack, g = engine.params["stack"]["L0"], torch.Generator(model.device).manual_seed(0)
+    weights = {name: stack[part][name][0] for part, names in (
+        ("attn", ("wq", "wk", "wv", "wo")), ("mlp", ("w_gate", "w_up", "w_down")))
+        for name in names}
+    weights["w_head"] = engine.params["embed"]["w_head"]
+    products = []
+    for name, w in weights.items():
+        x = torch.randn((SLOTS * C, w.shape[0]), generator=g, device=model.device).to(w.dtype)
+        big, small = torch.matmul(x, w)[:SLOTS], torch.matmul(x[:SLOTS].contiguous(), w)
+        products.append(f"{name} {int((big != small).sum())} of {small.numel()}")
+    return (f"bf16 verify vs decode steps: {'; '.join(rows)}; layer 0's products and the LM "
+            f"head, rows of x[{SLOTS * C}] @ w vs x[{SLOTS}] @ w, values differing: "
+            f"{', '.join(products)}")
+
+
+def spec_phase(torch, args, model, post, qparams, prompts) -> dict:
+    """Phase 7d: self-speculative decoding, the bf16 tree ``post`` (phase 5's
+    input) verifying, ``slots=8``, blocks of 16, ``k_steps=8``,
+    ``n_spec=4``:
+
+    * (i) phase 6's 8 requests (128 prompt + 64 generated tokens) through
+      the paged engine with ``post``, no speculation: the baseline;
+    * (ii) the same with speculation, phase 5's DAQ-fp8 tree drafting,
+      ``check_invariants=True``;
+    * (iii) as (ii) with the depth pinned (``spec_dynamic=False``);
+    * (iv) as (ii) with an AbsMax draft (``method="absmax"``, no base);
+    * (v) phase 7c's 18 requests with ``chunk_size=64, prefix_cache=True``,
+      the DAQ draft, served cold then warm.
+
+    Asserts conservation after every admission and dispatch, ``drafted ==
+    accepted + rejected`` and the fp8 launch formula of each speculative
+    serve (``fp8_spec_launches``), every request's tokens in range and its
+    first token equal to the baseline's (the same bf16 prefill), (ii),
+    (iii) and (iv) equal token for token (the verifier alone decides a
+    token's value, whatever the draft and the depth), a copy-on-write in
+    (v), warm == cold; then one speculative dispatch and one composed
+    dispatch under ``set_sync_debug_mode("error")``.  Prints each serve's
+    time, tok/s, tokens per round and acceptance rate, each speculative
+    serve's agreement with the baseline and ``verify_decode_bits`` (PERF.md,
+    decision b: on the card the verify's rows are not the decode steps'
+    bits).  Returns the DAQ engine and requests for phase 8."""
+    from repro_torch.configs import QuantConfig
+    from repro_torch.engine import Engine
+    from repro_torch.quantize import quantize
+    cfg = model.cfg
+    requests = list(prompts)
+    kw = dict(slots=SLOTS, cache_len=PROMPT + GEN, k_steps=K_STEPS, paged=True,
+              block_size=BLOCK)
+    t0 = time.perf_counter()
+    absmax, _ = quantize(post, None, QuantConfig(), mode="storage", method="absmax")
+    torch.cuda.synchronize()
+    log(f"spec phase: AbsMax draft quantized in {time.perf_counter() - t0:.2f} s; "
+        f"{len(requests)} requests x {GEN} tokens, slots={SLOTS}, k_steps={K_STEPS}, "
+        f"n_spec={N_SPEC}, cache_len={PROMPT + GEN}, blocks of {BLOCK}")
+    spec_kw = dict(n_spec=N_SPEC, check_invariants=True, **kw)
+
+    def check(name, engine, reqs, base=None):
+        held0 = len(engine._hold_blocks)
+        outputs, stats, launches, secs = counted_serve(torch, engine, reqs)
+        ctr = stats["counters"]
+        line = (f"spec phase, {name}: {secs:.2f} s, {len(reqs) * GEN / secs:.1f} tok/s end to "
+                f"end; {stats['prefill_calls']} admissions, {stats['dispatches']} dispatches, "
+                f"{ctr['tokens']} tokens through them in {stats['decode_s']:.3f} s "
+                f"({ctr['tokens'] / stats['decode_s']:.1f} tok/s), "
+                f"{ctr['tokens'] / stats['decode_steps']:.3f} per step of {SLOTS} slots")
+        if engine.cfg.n_spec:
+            line += (f"; acceptance {stats['draft_accepted']} of {stats['draft_tokens']} drafted "
+                     f"({stats['draft_accepted'] / max(stats['draft_tokens'], 1):.4f}), final "
+                     f"depth {stats['spec_depth']}, blocked retries {ctr['blocked_retries']}")
+        log(f"{line}; counters {json.dumps(ctr)}; launches {json.dumps(launches)}")
+        for out in outputs:
+            if len(out) != GEN or not all(0 <= t < cfg.vocab_size for t in out):
+                raise AssertionError(f"spec phase, {name}: bad output row {out[:8]}... "
+                                     f"({len(out)} tokens)")
+        if held0 + ctr["blocks_popped"] - ctr["blocks_released"] != len(engine._hold_blocks):
+            raise AssertionError(f"spec phase, {name}: {held0} held before + popped "
+                                 f"{ctr['blocks_popped']} - released {ctr['blocks_released']} "
+                                 f"!= {len(engine._hold_blocks)} held by the index")
+        if engine.cfg.n_spec and (ctr["drafted"] != ctr["accepted"] + ctr["rejected"]
+                                  or ctr["drafted"] <= 0):
+            raise AssertionError(f"spec phase, {name}: drafted {ctr['drafted']} != "
+                                 f"accepted {ctr['accepted']} + rejected {ctr['rejected']}")
+        # the bf16 tree takes no fp8 kernel; the draft's steps the decode route
+        want = dict.fromkeys(launches, 0)
+        if engine.cfg.n_spec:
+            want.update(fp8_spec_launches(stats, cfg.n_layers))
+        if launches != want:
+            raise AssertionError(f"spec phase, {name}: launches {launches}, expected {want}")
+        if base is not None:
+            log(f"spec phase, {name} vs (i): {agreement(outputs, base)}")
+            if [o[0] for o in outputs] != [o[0] for o in base]:
+                raise AssertionError(f"spec phase, {name}: first tokens differ from the "
+                                     f"baseline's")
+        return outputs, stats
+
+    plain = Engine(model, post, **kw)
+    base, _ = check("(i) bf16, no speculation", plain, requests)
+    log(f"spec phase: {verify_decode_bits(torch, plain, requests, base)}")
+    daq = Engine(model, post, draft_params=qparams, **spec_kw)
+    spec_outs = [check(name, engine, requests, base)[0] for name, engine in (
+        ("(ii) DAQ draft", daq),
+        ("(iii) DAQ draft, depth pinned",
+         Engine(model, post, draft_params=qparams, spec_dynamic=False, **spec_kw)),
+        ("(iv) AbsMax draft", Engine(model, post, draft_params=absmax, **spec_kw)))]
+    if any(o != spec_outs[0] for o in spec_outs):
+        raise AssertionError("spec phase: the speculative serves' tokens depend on the draft")
+    log("spec phase: (ii), (iii) and (iv) equal token for token")
+    del plain, absmax
+    torch.cuda.empty_cache()
+    spec_dispatch_under_error_mode(torch, daq, requests)
+    log('spec phase: one speculative dispatch ran under set_sync_debug_mode("error")')
+
+    preqs = prefix_requests(torch, args, cfg.vocab_size, model.device)
+    composed = Engine(model, post, draft_params=qparams, n_spec=N_SPEC, chunk_size=CHUNK,
+                      prefix_cache=True, check_invariants=True,
+                      **{**kw, "cache_len": PAGED_CACHE_LEN})
+    log(f"spec phase, (v): {len(preqs)} requests of phase 7c, cache_len {PAGED_CACHE_LEN}, "
+        f"chunk_size {CHUNK}, prefix cache")
+    cold, cs = check("(v) composed, cold", composed, preqs)
+    warm, ws = check("(v) composed, warm", composed, preqs)
+    log(f"spec phase: (v) warm vs cold: {agreement(warm, cold)}; prompt tokens prefilled "
+        f"{cs['prefill_tokens']} cold, {ws['prefill_tokens']} warm")
+    if cs["counters"]["cow_copies"] < 1 or ws["counters"]["cow_copies"] < 1:
+        raise AssertionError("spec phase, (v): no copy-on-write of a speculative span")
+    if warm != cold:
+        raise AssertionError("spec phase, (v): the warm serve's tokens differ from the cold "
+                             "one's")
+    ran = first_chunked_dispatch_under_error_mode(torch, composed, "_dispatch_spec_chunk")
+    composed.serve(preqs[:SLOTS], gen_tokens=GEN)
+    if not ran:
+        raise AssertionError("spec phase: no composed dispatch ran under the sync debug mode")
+    log('spec phase: one composed (chunked, prefix-cached) speculative dispatch ran under '
+        'set_sync_debug_mode("error")')
+    del composed
+    torch.cuda.empty_cache()
+    return {"engine": daq, "requests": requests}
+
+
+def spec_breakdown(torch, phase: dict) -> None:
+    """One speculative round at (ii)'s state (its first admission: 8 slots
+    at 128 tokens) and its parts: the round (``make_decode_dispatch`` with
+    ``k_steps=1``), its N_SPEC draft steps (``decode_step_paged`` with the
+    DAQ tree) and its verify (``verify_chunk_paged`` of the bf16 tree over
+    ``SLOTS x (N_SPEC + 1)`` rows); each from a copy of the state: host ms,
+    device busy ms and launches."""
+    from repro_torch.engine.scheduler import make_decode_dispatch
+    engine, requests = phase["engine"], phase["requests"]
+    model = engine.model
+    cache0, state0, gen = admitted(torch, engine, requests)
+    one_round = make_decode_dispatch(model, engine.cfg.sampling, 1, paged=True, n_spec=N_SPEC)
+    depth = torch.full((), N_SPEC, dtype=torch.int32, device=model.device)
+    vtoks = torch.cat([state0["cur"]] * (N_SPEC + 1), dim=1)
+    valid = torch.full((SLOTS,), N_SPEC + 1, dtype=torch.int32, device=model.device)
+
+    def round_():
+        one_round(engine.params, engine.draft_params, clone_tree(state0), clone_tree(cache0),
+                  depth, gen)
+        torch.cuda.synchronize()
+
+    def drafts():
+        cache = clone_tree(cache0)
+        for _ in range(N_SPEC):
+            _, cache = model.decode_step_paged(engine.draft_params, state0["cur"], cache)
+        torch.cuda.synchronize()
+
+    def verify():
+        cache = clone_tree(cache0)
+        model.verify_chunk_paged(engine.params, vtoks, cache, cache["lengths"], valid)
+        torch.cuda.synchronize()
+
+    at = f"at cache_len {PROMPT + GEN}, {SLOTS} slots at {PROMPT} tokens"
+    device_breakdown(torch, f"speculative round (n_spec {N_SPEC}, {at})", round_, 1, "round")
+    device_breakdown(torch, f"its draft steps (DAQ-fp8 decode_step_paged, {at})", drafts,
+                     N_SPEC, "draft step")
+    device_breakdown(torch, f"its verify (bf16 verify_chunk_paged of {SLOTS} x {N_SPEC + 1} "
+                     f"rows, {at})", verify, 1, "verify")
+    del cache0, state0
+    torch.cuda.empty_cache()
 
 
 def chunk_breakdown(torch, model, qparams, requests, ref_engine) -> None:
@@ -1688,19 +1932,25 @@ def main() -> int:
     # the CUDA-core kernel's path is the float32 model's (bf16 serves never
     # reach it): its launches are counted there
     records["fp8_matmul"]["launches"] = fp32_launches["fp8_matmul"]
-    model, qparams, prompts = main_path(torch, args, records)
+    model, post, qparams, prompts = main_path(torch, args, records)
     t0 = time.perf_counter()
     phase = paged_phase(torch, args, model, qparams)
     log(f"paged phase passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     prefix_phase(torch, args, model, qparams)
     log(f"prefix phase passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    spec = spec_phase(torch, args, model, post, qparams, prompts)
+    log(f"spec phase passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     breakdowns(torch, model, qparams, prompts)
     paged_breakdown(torch, phase)
     chunk_breakdown(torch, model, qparams, phase["requests"], phase["engines"]["parity"])
-    del phase, qparams
+    spec_breakdown(torch, spec)
+    del phase, spec, qparams, post
     torch.cuda.empty_cache()
     quantize_breakdown(torch, args.seed)
+    log(f"breakdowns took {time.perf_counter() - t0:.1f} s")
 
     sources = {"scale_search": ("src/repro_torch/csrc/scale_search.cu",
                                 "src/repro/kernels/scale_search/kernel.py:79"),

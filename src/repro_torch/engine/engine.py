@@ -38,12 +38,23 @@ fetched; everything per token lives on the device:
   room, in place of a FIFO wait that could deadlock; the cache persists
   across ``serve`` calls.  A partly matched last block is mapped shared,
   and the first decode write copies it (copy-on-write).
+* **self-speculative decoding** — ``n_spec > 0`` (paged only; pass the
+  quantized ``draft_params`` tree) makes each dispatch step a speculative
+  round (engine/spec.py): the draft proposes up to ``n_spec`` tokens, one
+  verify forward of ``params`` scores them, a prefix is accepted and the
+  rest rolls back.  It composes with chunked prefill and prefix caching.
+  The depth is dynamic by default (``spec_dynamic``): a host AIMD
+  controller moves it 1..n_spec from each dispatch's acceptance counters,
+  read in the transfer that drains the grid, and hands it to the next
+  dispatch as a device scalar.  Greedy output equals the non-speculative
+  engine's for any draft (on the CPU; ``PERF.md`` decision a), and the
+  acceptance rate (stats ``draft_accepted / draft_tokens``) measures how
+  closely the quantized tree follows the full-precision one.
 
 Every prefill the engine runs (one-shot or a chunk) uses one flash tile
 shape, ``(4 * block_size, blocks_for(cache_len) * block_size)``
 (``Engine._tiles``), so on the CPU a chunked prefill gives the one-shot
-prefill's bits and greedy tokens.  Speculative decoding of the reference
-engine is not ported yet.
+prefill's bits and greedy tokens.
 """
 from __future__ import annotations
 
@@ -60,6 +71,7 @@ from repro_torch.engine import paged as P
 from repro_torch.engine.prefix import PrefixIndex
 from repro_torch.engine.sampler import SamplingParams, sample
 from repro_torch.engine.scheduler import init_slot_state, make_decode_dispatch
+from repro_torch.engine.spec import DepthController
 from repro_torch.telemetry.counters import (COUNTER_KEYS, bump, counter_totals,
                                             init_counters)
 
@@ -81,6 +93,13 @@ class EngineConfig:
                                 # implies chunked prefill)
     check_invariants: bool = False  # assert allocator conservation after
                                     # every admission and dispatch (slow)
+    n_spec: int = 0         # >0: self-speculative decoding, up to n_spec draft
+                            # tokens a round from draft_params, one verify
+                            # forward of params (paged only; composes with
+                            # chunk_size and prefix_cache)
+    spec_dynamic: bool = True   # move the depth 1..n_spec from the acceptance
+                                # rate (spec.DepthController); False pins it
+                                # at n_spec
 
 
 def _tensor_bytes(tree) -> int:
@@ -92,7 +111,8 @@ def _tensor_bytes(tree) -> int:
 class Engine:
     """Continuous-batching serving engine over a built :class:`Model`."""
 
-    def __init__(self, model, params, cfg: EngineConfig | None = None, **kw):
+    def __init__(self, model, params, cfg: EngineConfig | None = None, *, draft_params=None,
+                 **kw):
         if cfg is None:
             cfg = EngineConfig(**kw)
         elif kw:
@@ -101,10 +121,27 @@ class Engine:
             raise ValueError(f"k_steps must be >= 1, got {cfg.k_steps}")
         if (cfg.chunk_size or cfg.prefix_cache) and not cfg.paged:
             raise ValueError("chunk_size / prefix_cache need paged=True")
+        if cfg.n_spec:
+            if not cfg.paged:
+                raise ValueError("speculative decoding (n_spec > 0) rides the paged engine: "
+                                 "pass paged=True")
+            if cfg.n_spec >= cfg.k_steps:
+                raise ValueError(f"n_spec must be < k_steps (got n_spec={cfg.n_spec}, "
+                                 f"k_steps={cfg.k_steps}): the dispatch runs k_steps "
+                                 f"speculative rounds and sizes its token grid "
+                                 f"k_steps*(n_spec+1) — raise k_steps or lower n_spec")
+            if draft_params is None:
+                raise ValueError("speculative decoding needs draft_params: a quantized copy "
+                                 "of the serving weights, e.g. repro_torch.quantize.quantize("
+                                 "params, base, qcfg, mode='storage')[0]")
+        elif draft_params is not None:
+            raise ValueError("draft_params without n_spec > 0 does nothing: set n_spec to "
+                             "enable speculative decoding")
         if cfg.prefix_cache and not cfg.chunk_size:
             cfg = dataclasses.replace(cfg, chunk_size=4 * cfg.block_size)
         self.model = model
         self.params = params
+        self.draft_params = draft_params
         self.cfg = cfg
         self._mb = P.blocks_for(cfg.cache_len, cfg.block_size)       # blocks per slot
         # one flash tile shape for every prefill: a chunk's rows then give
@@ -116,10 +153,18 @@ class Engine:
             self._num_blocks = cfg.num_blocks or cfg.slots * self._mb
         self._dispatch = make_decode_dispatch(model, cfg.sampling, cfg.k_steps,
                                               paged=cfg.paged, cow=cfg.prefix_cache)
+        if cfg.n_spec:
+            self._dispatch_spec = make_decode_dispatch(
+                model, cfg.sampling, cfg.k_steps, paged=True, cow=cfg.prefix_cache,
+                n_spec=cfg.n_spec)
         if cfg.chunk_size:
             self._dispatch_chunk = make_decode_dispatch(
                 model, cfg.sampling, cfg.k_steps, paged=True, cow=cfg.prefix_cache,
                 chunk=cfg.chunk_size, tiles=self._tiles)
+            if cfg.n_spec:
+                self._dispatch_spec_chunk = make_decode_dispatch(
+                    model, cfg.sampling, cfg.k_steps, paged=True, cow=cfg.prefix_cache,
+                    chunk=cfg.chunk_size, tiles=self._tiles, n_spec=cfg.n_spec)
             self._index = PrefixIndex(cfg.block_size)
             self._pcache = self._pstate = None  # the cache kept across serve calls
 
@@ -186,8 +231,56 @@ class Engine:
     def _blocks_needed(self, prompt_len: int, gen_tokens: int) -> int:
         """Worst-case pool blocks one request can ever hold: it writes
         ``prompt + gen - 1`` cache rows over its lifetime, capped at the
-        slot's capacity (the cache drops overflow writes)."""
-        return min(P.blocks_for(prompt_len + gen_tokens - 1, self.cfg.block_size), self._mb)
+        slot's capacity (the cache drops overflow writes).  A speculative
+        round writes up to ``n_spec`` rows past the budget before it rolls
+        back (the last round's span), so the reservation covers them too."""
+        return min(P.blocks_for(prompt_len + gen_tokens - 1 + self.cfg.n_spec,
+                                self.cfg.block_size), self._mb)
+
+    def _spec_controller(self) -> DepthController:
+        """A fresh depth policy for one serve.  With ``spec_dynamic=False``
+        the thresholds lie outside [0, 1], so no acceptance rate moves the
+        depth off ``n_spec``: one code path either way."""
+        if self.cfg.spec_dynamic:
+            return DepthController(self.cfg.n_spec)
+        return DepthController(self.cfg.n_spec, lo=-1.0, hi=2.0)
+
+    def _run_dispatch(self, dispatch, state, cache, gen, spec_ctl, stats):
+        """One K-step dispatch and its one device-to-host transfer (token
+        grid, emission mask, counters).  Returns (state, cache, tokens [B,
+        W], emitted [B, W], counters) on the host, ``W = K * (n_spec + 1)``;
+        with speculation it runs ``dispatch`` with the draft tree at the
+        controller's depth and folds the dispatch's drafted / accepted
+        deltas into ``stats`` and the controller."""
+        cfg = self.cfg
+        B = cfg.slots
+        W = cfg.k_steps * (cfg.n_spec + 1)
+        ctr0 = state["ctr"]
+        t0 = time.perf_counter()
+        if spec_ctl is None:
+            state, cache, toks, emitted = dispatch(self.params, state, cache, gen)
+        else:
+            depth = torch.full((), spec_ctl.depth, dtype=torch.int32, device=self.model.device)
+            state, cache, toks, emitted = dispatch(self.params, self.draft_params, state,
+                                                   cache, depth, gen)
+        packed = torch.cat([toks.reshape(-1), emitted.reshape(-1).to(torch.int32),
+                            torch.stack([state["ctr"][k] for k in COUNTER_KEYS]),
+                            torch.stack([ctr0[k] for k in ("drafted", "accepted")])])
+        host = packed.cpu().numpy()
+        stats["decode_s"] += time.perf_counter() - t0
+        stats["host_syncs"] += 1
+        stats["dispatches"] += 1
+        stats["decode_steps"] += cfg.k_steps
+        ctr = dict(zip(COUNTER_KEYS, host[2 * B * W:-2]))
+        if spec_ctl is not None:
+            d_dr = int(ctr["drafted"]) - int(host[-2])
+            d_ac = int(ctr["accepted"]) - int(host[-1])
+            stats["draft_tokens"] += d_dr
+            stats["draft_accepted"] += d_ac
+            stats["spec_rounds"] += cfg.k_steps
+            stats["spec_depth"] = spec_ctl.update(d_dr, d_ac)
+        return (state, cache, host[:B * W].reshape(B, W),
+                host[B * W:2 * B * W].reshape(B, W).astype(bool), ctr)
 
     def _assert_invariants(self, cache, state) -> None:
         """Conservation of the block pool, checked on the device's state
@@ -218,6 +311,9 @@ class Engine:
         assert self._ctr_live0 + popped - released == NB - n_free, (
             f"counter leak: base {self._ctr_live0} + popped {popped} - released "
             f"{released} != live {NB - n_free}")
+        assert ctr["drafted"] == ctr["accepted"] + ctr["rejected"], (
+            f"spec counter leak: drafted {ctr['drafted']} != accepted {ctr['accepted']} + "
+            f"rejected {ctr['rejected']}")
 
     def _admit(self, cache, state, free_slots, prompts, gen_tokens, gen):
         """Prefill ``prompts`` into ``free_slots`` with one right-padded
@@ -303,7 +399,7 @@ class Engine:
         self._hold_blocks.difference_update(ids)
         return cache, state
 
-    def _serve_chunked(self, requests, gen_tokens: int, seed, stats: dict) -> list:
+    def _serve_chunked(self, requests, gen_tokens: int, seed, stats: dict, spec_ctl) -> list:
         """The serve loop of a chunked (and prefix-cached) engine: admission
         reserves each request's private worst case plus the index's holds
         against the pool (with one spare block for a partial hit's
@@ -312,7 +408,8 @@ class Engine:
         chunked dispatch; a prompt's new full blocks are registered in the
         index once it has prefilled (a duplicate of an entry loses its hold
         again).  The counters are read after the loop, so the releases that
-        follow the last dispatch count too."""
+        follow the last dispatch count too.  With speculation every dispatch
+        is the speculative one, chunked while a slot prefills."""
         cfg, model = self.cfg, self.model
         B, K, C, bs = cfg.slots, cfg.k_steps, cfg.chunk_size, cfg.block_size
         NB, MB = self._num_blocks, self._mb
@@ -389,7 +486,10 @@ class Engine:
                     n_new = new_full + (1 if part_len and not partial else 0)
                     shared = matched + ([partial_id] if partial else [])
                     n_ret = new_full if cfg.prefix_cache else 0
-                    lifetime = min(P.blocks_for(min(L + gen_tokens - 1, cap_rows), bs), MB)
+                    # a speculative round overshoots the budget by up to
+                    # n_spec rows before it rolls back, as _blocks_needed
+                    lifetime = min(P.blocks_for(min(L + gen_tokens - 1 + cfg.n_spec, cap_rows),
+                                                bs), MB)
                     cow_spare = 1 if partial and gen_tokens > 1 else 0
                     slot_need = (n_new - n_ret) + lifetime - P.blocks_for(L, bs) + cow_spare
                     demand = sum(slot_rsv) + len(self._hold_blocks) + slot_need + n_ret - NB
@@ -431,18 +531,13 @@ class Engine:
                 assert not queue, "admission stalled with an idle pool"
                 continue
 
-            t0 = time.perf_counter()
             chunked = any(p > 0 for p in slot_pf)
-            dispatch = self._dispatch_chunk if chunked else self._dispatch
-            state, cache, toks_d, emitted = dispatch(self.params, state, cache, gen)
-            host = torch.cat([toks_d.reshape(-1),
-                              emitted.reshape(-1).to(torch.int32)]).cpu().numpy()
-            stats["decode_s"] += time.perf_counter() - t0
-            toks_h = host[:B * K].reshape(B, K)
-            em_h = host[B * K:].reshape(B, K).astype(bool)
-            stats["host_syncs"] += 1
-            stats["dispatches"] += 1
-            stats["decode_steps"] += K
+            if cfg.n_spec:
+                dispatch = self._dispatch_spec_chunk if chunked else self._dispatch_spec
+            else:
+                dispatch = self._dispatch_chunk if chunked else self._dispatch
+            state, cache, toks_h, em_h, _ = self._run_dispatch(dispatch, state, cache, gen,
+                                                               spec_ctl, stats)
             stats["chunk_dispatches"] += chunked
             for s in range(B):
                 if slot_rid[s] < 0 or slot_pf[s] <= 0:
@@ -495,9 +590,11 @@ class Engine:
               return_stats: bool = False):
         """Serve ``requests`` (1-D token sequences); each gets ``gen_tokens``
         generated tokens.  Returns outputs in request order (and a stats dict
-        when ``return_stats``)."""
+        when ``return_stats``; with speculation it also holds
+        ``spec_rounds``, ``draft_tokens``, ``draft_accepted`` and the last
+        ``spec_depth``)."""
         cfg, model = self.cfg, self.model
-        B, K = cfg.slots, cfg.k_steps
+        B = cfg.slots
         dev = model.device
         requests = [torch.as_tensor(r, dtype=torch.int32).reshape(-1).to(dev)
                     for r in requests]
@@ -505,10 +602,14 @@ class Engine:
                  "decode_steps": 0, "tokens": 0, "prefill_tokens": 0,
                  "prefill_s": 0.0, "decode_s": 0.0,
                  "counters": dict.fromkeys(COUNTER_KEYS, 0)}
+        spec_ctl = self._spec_controller() if cfg.n_spec else None
+        if cfg.n_spec:
+            stats.update(spec_rounds=0, draft_tokens=0, draft_accepted=0,
+                         spec_depth=spec_ctl.depth)
         if gen_tokens < 1 or not requests:
             return ([], stats) if return_stats else []
         if cfg.chunk_size:
-            outs = self._serve_chunked(requests, gen_tokens, seed, stats)
+            outs = self._serve_chunked(requests, gen_tokens, seed, stats, spec_ctl)
             return (outs, stats) if return_stats else outs
         self._ctr_live0 = 0
         outputs: dict[int, list[int]] = {}
@@ -576,19 +677,9 @@ class Engine:
             if not any(r >= 0 for r in slot_rid):
                 continue
 
-            t0 = time.perf_counter()
-            state, cache, toks, emitted = self._dispatch(self.params, state, cache, gen)
-            # one transfer: token grid, emission mask and counters together
-            packed = torch.cat([toks.reshape(-1), emitted.reshape(-1).to(torch.int32),
-                                torch.stack([state["ctr"][k] for k in COUNTER_KEYS])])
-            host = packed.cpu().numpy()
-            stats["decode_s"] += time.perf_counter() - t0
-            toks_h = host[:B * K].reshape(B, K)
-            em_h = host[B * K:2 * B * K].reshape(B, K).astype(bool)
-            ctr_host = dict(zip(COUNTER_KEYS, host[2 * B * K:]))
-            stats["host_syncs"] += 1
-            stats["dispatches"] += 1
-            stats["decode_steps"] += K
+            dispatch = self._dispatch_spec if cfg.n_spec else self._dispatch
+            state, cache, toks_h, em_h, ctr_host = self._run_dispatch(dispatch, state, cache,
+                                                                      gen, spec_ctl, stats)
             if cfg.paged and cfg.check_invariants:
                 self._assert_invariants(cache, state)
             for s in range(B):

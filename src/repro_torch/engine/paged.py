@@ -1,8 +1,7 @@
 """Paged KV cache: global block pool, per-slot block tables, a device free
 list and refcounts (prefix sharing, copy-on-write).
 
-Port of ``repro/engine/paged.py`` without ``alloc_span`` (speculation).
-The contiguous cache reserves ``cache_len`` rows per slot per layer; the
+Port of ``repro/engine/paged.py``.  The contiguous cache reserves ``cache_len`` rows per slot per layer; the
 paged cache replaces them with a **global pool of fixed-size token blocks**
 shared by all slots:
 
@@ -31,7 +30,9 @@ block shared through the prefix cache) makes ``alloc_step(cow=True)`` pop a
 fresh block, rewire the entry, drop one reference on the shared block and
 report it as ``cow_src``, so the layer copies its rows before appending.
 Prefill-chunk writes never copy: a recomputed row whose block is shared is
-dropped (``span_targets``), as the cached row already holds its value.
+dropped (``span_targets``), as the cached row already holds its value.  A
+speculative round allocates its whole write span once (``alloc_span``),
+copying a shared first block the same way.
 
 Every function here is shape-static device code with no host sync: no
 ``.item()``, no boolean-mask indexing, no tensor-valued ``if``.  The
@@ -155,6 +156,74 @@ def alloc_step(bstate: dict, lengths: torch.Tensor, block_size: int, cap: int,
     woff = pos % block_size
     cow_src = torch.where(dec, cur, wblk)
     return {**bstate, "tbl": tbl, "ref": ref, "n_free": n_free}, wblk, woff, cow_src
+
+
+def alloc_span(bstate: dict, lengths: torch.Tensor, width: int, block_size: int, cap: int,
+               ring: bool, cow: bool = False):
+    """One speculative round's allocation: make each active slot's table
+    cover rows ``[lengths[b], lengths[b] + width)``, the round's write span
+    (the draft writes ``width - 1`` rows past the length and the verify one
+    more), so no write inside the round pops a block.
+
+    With ``cow=True`` the span's first entry (the block holding row
+    ``lengths[b]``) may be a partly filled prompt block shared through the
+    prefix cache (``ref > 1``); only that entry can be shared, as shared
+    blocks enter a table at admission and cover prompt rows ``< lengths``.
+    It gets ``alloc_step``'s treatment: a private block is popped, the entry
+    rewired, one reference dropped on the source, and the pair reported for
+    the round to copy (``models/lm.py::cow_copy_blocks``) before any write.
+    Two slots sharing one block may both copy it in one round, so the
+    decrement adds duplicates (``index_add_``).
+
+    Rows at or past ``cap`` need no block.  Ring tables are allocated whole
+    at admission: the ring case pops and copies nothing.  A dry pool leaves
+    entries unallocated (their writes go to the trash block); the engine's
+    reservation ledger counts the span into each request's worst case, so
+    that path is not reached in normal operation.  Blocks stay in the table
+    after a rejection rolls the length back; the slot grows into them.
+
+    Returns ``(bstate, cow_src [B], cow_dst [B], blocked [B])``:
+    ``cow_src != cow_dst`` marks a slot whose first span block is copied
+    ``src -> dst`` (both the trash index where nothing is copied);
+    ``blocked`` marks a slot whose shared first block could not be copied
+    (pool dry): its table still points at the shared block, so the round
+    must leave the slot out."""
+    tbl, free, n_free, ref = bstate["tbl"], bstate["free"], bstate["n_free"], bstate["ref"]
+    B, MB = tbl.shape
+    trash = free.shape[0]
+    dev = tbl.device
+    no_copy = torch.full((B,), trash, dtype=_I32, device=dev)
+    if ring:
+        return bstate, no_copy, no_copy, torch.zeros(B, dtype=torch.bool, device=dev)
+    nbl = width // block_size + 2                 # entries a span can straddle
+    jj = torch.arange(nbl, dtype=_I32, device=dev)[None, :]
+    j = lengths[:, None] // block_size + jj       # candidate entries [B, nbl]
+    in_span = (j * block_size < (lengths[:, None] + width).clamp(max=cap)) & (j < MB)
+    cur = torch.gather(tbl, 1, j.clamp(0, MB - 1).long())
+    live = bstate["slot_active"][:, None] & in_span
+    if cow:
+        shared = live & (jj == 0) & (cur >= 0) & (ref[cur.clamp(0, trash - 1).long()] > 1)
+    else:
+        shared = torch.zeros((B, nbl), dtype=torch.bool, device=dev)
+    need = live & ((cur < 0) | shared)
+    k = _cumsum(need.reshape(-1)).reshape(B, nbl)  # 1-based pop rank
+    ok = need & (k <= n_free)
+    ids = free[(n_free - k).clamp(0, trash - 1).long()]
+    new_rows = torch.where(ok, ids, cur)
+    # a row's candidate entries are distinct; those past the table go to a
+    # sink column that is cut off after, as the reference's scatter drops them
+    ext = torch.cat([tbl, tbl.new_full((B, 1), NEG)], 1)
+    tbl = ext.scatter(1, torch.where(j < MB, j, MB).long(),
+                      torch.where(in_span, new_rows, cur))[:, :MB]
+    ref = _scatter_drop(ref, torch.where(ok, ids, trash).reshape(-1), 1)
+    # a successful CoW pop releases one reference on the shared source
+    dec = shared & ok
+    ref = _scatter_drop(ref, torch.where(dec, cur, trash).reshape(-1), -1, add=True)
+    n_free = n_free - ok.sum(dtype=_I32)
+    cow_src = torch.where(dec[:, 0], cur[:, 0], no_copy)
+    cow_dst = torch.where(dec[:, 0], new_rows[:, 0], no_copy)
+    blocked = shared[:, 0] & ~ok[:, 0]
+    return {**bstate, "tbl": tbl, "ref": ref, "n_free": n_free}, cow_src, cow_dst, blocked
 
 
 def release_slots(bstate: dict, done: torch.Tensor) -> dict:

@@ -58,11 +58,17 @@ def probs(logits: torch.Tensor, sp: SamplingParams) -> torch.Tensor:
     return torch.softmax(warp_logits(logits, sp), dim=-1)
 
 
+def gumbel_argmax(logits: torch.Tensor, gen: torch.Generator | None) -> torch.Tensor:
+    """A draw from ``softmax(logits)`` over the last axis (int32), by the
+    Gumbel-max trick: no host sync, unlike ``torch.multinomial``."""
+    u = torch.rand(logits.shape, generator=gen, device=logits.device)
+    gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
+    return torch.argmax(logits + gumbel, dim=-1).to(torch.int32)
+
+
 def sample(logits: torch.Tensor, gen: torch.Generator | None,
            sp: SamplingParams) -> torch.Tensor:
     """logits [..., V] -> token ids [...] (int32), without a host sync."""
     if sp.greedy:
         return torch.argmax(logits, dim=-1).to(torch.int32)
-    u = torch.rand(logits.shape, generator=gen, device=logits.device)
-    gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
-    return torch.argmax(warp_logits(logits, sp) + gumbel, dim=-1).to(torch.int32)
+    return gumbel_argmax(warp_logits(logits, sp), gen)

@@ -1,7 +1,6 @@
 """Device-resident slot scheduler: state layout + multi-token decode dispatch.
 
-Port of ``repro/engine/scheduler.py`` (without speculation).  The
-continuous batcher's per-slot state (``cur`` token, ``active`` flag,
+Port of ``repro/engine/scheduler.py``.  The continuous batcher's per-slot state (``cur`` token, ``active`` flag,
 ``remaining`` budget, the counter tree) lives in device tensors and is
 updated inside the dispatch, so the host never round-trips per token.  One
 dispatch runs ``k_steps`` decode steps — a Python loop of device work with
@@ -29,6 +28,10 @@ from the chunk's logits and emitted through the token grid, and it decodes
 from the next step on: the one-shot engine's "prefill, sample, decode"
 order.  The two sub-steps share one batch, so each restores the per-slot
 ``lengths`` of the slots in the other phase (``_keep_rows``).
+
+**Speculation** (``n_spec > 0``, paged only): each of the K steps becomes a
+speculative round (``engine/spec.py``), which composes with copy-on-write
+and the chunked-prefill piece the same way.
 """
 from __future__ import annotations
 
@@ -110,16 +113,22 @@ def chunk_prefill_substep(model, sp: SamplingParams, chunk: int, params, st: dic
 
 
 def make_decode_dispatch(model, sp: SamplingParams, k_steps: int, *, paged: bool = False,
-                         cow: bool = False, chunk: int = 0, tiles=(0, 0)):
+                         cow: bool = False, chunk: int = 0, tiles=(0, 0), n_spec: int = 0):
     """``dispatch(params, state, cache, gen)`` -> (state, cache, tokens
     [B, K], emitted [B, K] bool).  ``emitted[b, j]`` marks tokens produced
     while slot ``b`` was still active — a contiguous prefix per row.
     ``paged=True`` takes the paged cache of ``model.init_paged_cache``;
     ``cow=True`` turns on its copy-on-write decode writes (prefix caching);
     ``chunk > 0`` adds a chunked-prefill piece to every step, its flash
-    tiles ``tiles``."""
-    if chunk and not paged:
-        raise ValueError("chunked prefill needs the paged cache")
+    tiles ``tiles``.  ``n_spec > 0`` returns the speculative dispatch of
+    ``engine/spec.py`` instead: ``dispatch(params, draft_params, state,
+    cache, depth, gen)``, its grids ``[B, K * (n_spec + 1)]``."""
+    if (chunk or n_spec) and not paged:
+        raise ValueError("chunked prefill and speculation need the paged cache")
+    if n_spec:
+        from repro_torch.engine.spec import make_spec_dispatch
+        return make_spec_dispatch(model, sp, k_steps, n_spec, cow=cow, chunk=chunk,
+                                  tiles=tiles)
     if paged:
         def step_fn(params, toks, cache):
             return model.decode_step_paged(params, toks, cache, cow=cow)

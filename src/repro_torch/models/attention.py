@@ -4,7 +4,9 @@ Port of the dense parts of ``repro/models/attention.py``.  Prefill runs the
 chunked online-softmax attention of ``models/flash.py``; decode runs one
 new token against a contiguous cache, or against the paged block pool
 through a block-table gather (``paged_decode_attention``); a prefill chunk
-runs against the paged pool the same way (``paged_prefill_attention``).
+runs against the paged pool the same way (``paged_prefill_attention``), and
+a speculative verify chunk runs the decode math once per row
+(``paged_verify_attention``).
 GQA is computed in grouped form — q is reshaped to [B, S, Kv, G, hd] and
 contracted against un-repeated k/v.
 """
@@ -178,3 +180,42 @@ def paged_decode_attention(q, pk, pv, tbl, lengths, *, window: int = 0,
     from repro_torch.engine.paged import gather_blocks
     return decode_attention(q, gather_blocks(pk, tbl), gather_blocks(pv, tbl), lengths + 1,
                             window=window, softcap=softcap)
+
+
+def paged_verify_attention(q, pk, pv, k_new, v_new, tbl, start, valid, *, window: int = 0,
+                           softcap: float = 0.0) -> torch.Tensor:
+    """Speculative-verify attention against the paged cache: row ``j`` of
+    the chunk gives what :func:`decode_attention` gives for a decode step at
+    position ``start[b] + j``, operation for operation.
+
+    q / k_new / v_new [B,C,{H|Kv},hd] are the chunk's rows; the pools and
+    ``tbl`` are the cache before they are written.  The kv buffer is the
+    table's gather with the fresh rows overlaid as a decode step would read
+    them back (cast to the pool dtype; an fp8 pool upcast to bf16), the
+    per-row length mask ``pos < start + j + 1`` hides rows past each one,
+    and the scores, softmax and fp32 contraction are
+    :func:`decode_attention`'s, batched over the C rows.  Unlike
+    :func:`paged_prefill_attention` (online softmax over flash tiles), this
+    keeps greedy speculative serving token-exact against per-token decode
+    on the CPU (``engine/spec.py``).  ``valid`` is unused: rows past it are
+    garbage the caller discards.  Linear tables only (sliding-window rings
+    are not ported)."""
+    if window:
+        raise NotImplementedError("sliding-window (ring) caches are not ported yet")
+    from repro_torch.engine.paged import gather_blocks
+    B, C, H, hd = q.shape
+    Kv = k_new.shape[2]
+    cdt = torch.bfloat16 if pk.element_size() == 1 else pk.dtype   # fp8: upcast
+    gk, gv = gather_blocks(pk, tbl).to(cdt), gather_blocks(pv, tbl).to(cdt)
+    pos = torch.arange(gk.shape[1], device=q.device)[None]
+    rel = pos - start[:, None]                                  # [B, cap]
+    fm = ((rel >= 0) & (rel < C))[..., None, None]
+    idx = rel.clamp(0, C - 1).long()[..., None, None].expand(-1, -1, Kv, hd)
+    kbuf = torch.where(fm, torch.gather(k_new.to(pk.dtype).to(cdt), 1, idx), gk)
+    vbuf = torch.where(fm, torch.gather(v_new.to(pv.dtype).to(cdt), 1, idx), gv)
+    s = _tile_scores(q.reshape(B, C, Kv, H // Kv, hd), kbuf, softcap)  # [B,Kv,G,C,cap]
+    qpos = start[:, None] + torch.arange(C, device=q.device)[None]     # [B, C]
+    mask = pos[:, None, :] < (qpos + 1)[..., None]                      # [B, C, cap]
+    p = torch.softmax(torch.where(mask[:, None, None], s, NEG_INF), dim=-1)
+    out = torch.einsum("bkgqc,bckh->bqkgh", p.to(vbuf.dtype).float(), vbuf.float())
+    return out.reshape(B, C, H, hd).to(q.dtype)

@@ -13,7 +13,8 @@ reference's buffer donation).  The paged decode cache (``init_paged_cache``,
 ``cache["stack"]["L0"]`` and the allocator state of ``engine/paged.py`` at
 the cache's top level, as the reference's does; ``prefill_chunk_paged``
 runs one piece of each slot's prompt through that cache (chunked prefill,
-prefix-hit tails).
+prefix-hit tails), and ``verify_chunk_paged`` a speculative round's draft
+tokens (each row the decode step at its position, on the CPU bit for bit).
 """
 from __future__ import annotations
 
@@ -151,6 +152,45 @@ def apply_layer_prefill_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelCon
     x = x + _attn_prefill_paged(p["attn"], apply_norm(p["ln1"], x, cfg.norm_eps), cache,
                                 pctx, cfg)
     return x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm_eps))
+
+
+def _attn_verify_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelConfig):
+    """Self-attn over one speculative-verify chunk: row ``j`` repeats the
+    decode step at position ``start[b] + j`` op for op
+    (``A.paged_verify_attention``), then the chunk's rows land in the pools
+    at the span targets (pads and overflows go to the trash block)."""
+    B, C, _ = x.shape
+    q, k, v = A.qkv_proj(p, x, cfg)
+    if cfg.rope_theta > 0:
+        pos = pctx["start"][:, None] + torch.arange(C, device=x.device)[None]
+        cos, sin = rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    out = A.paged_verify_attention(q, cache["pk"], cache["pv"], k, v, pctx["tbl"],
+                                   pctx["start"], pctx["valid"], window=cfg.sliding_window,
+                                   softcap=cfg.attn_logit_softcap)
+    A.write_paged_kv_span(cache["pk"], cache["pv"], k, v, pctx["wblk"], pctx["woff"])
+    return qlinear.matmul(out.reshape(B, C, -1), p["wo"])
+
+
+def apply_layer_verify_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelConfig):
+    x = x + _attn_verify_paged(p["attn"], apply_norm(p["ln1"], x, cfg.norm_eps), cache,
+                               pctx, cfg)
+    return x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm_eps))
+
+
+def cow_copy_blocks(cache: dict, src: torch.Tensor, dst: torch.Tensor) -> dict:
+    """A speculative round's copy-on-write: block ``src[b]``'s rows go into
+    block ``dst[b]`` in every layer's ``pk`` / ``pv`` pool, in place, before
+    any write of the round (``engine/paged.py::alloc_span`` rewired the
+    slot's shared first span block to ``dst``).  The reference skips the
+    copy with a branch on whether any slot copies; a tensor-valued branch
+    would synchronize the host, so here it always runs: slots without a
+    copy carry ``src == dst``, the trash block, and copying a block onto
+    itself changes no bit."""
+    src, dst = src.long(), dst.long()
+    for pool in cache["stack"]["L0"].values():
+        pool[:, dst] = pool[:, src]
+    return cache
 
 
 def apply_layer_prefill(p: dict, x, cache: dict, cfg: ModelConfig, tiles=(0, 0)):
@@ -318,6 +358,40 @@ class Model:
         idx = (valid - 1).clamp(0, C - 1).long()
         xg = x[torch.arange(B, device=x.device), idx][:, None]
         logits = lm_logits(params["embed"], xg)[:, 0]
+        return logits, {**cache, "lengths": torch.where(valid > 0, start + valid,
+                                                         cache["lengths"])}
+
+    @torch.no_grad()
+    def verify_chunk_paged(self, params: dict, tokens: torch.Tensor, cache: dict,
+                           start: torch.Tensor, valid: torch.Tensor):
+        """Speculative-verify forward: ``tokens`` [B, C] are rows ``start[b]
+        .. start[b] + valid[b] - 1`` of each slot's continuation.  Returns
+        the logits of every row [B, C, V] and the cache with the rows' K/V
+        written in place and ``lengths`` at ``start + valid``.  Row ``j``'s
+        logits are what ``decode_step_paged`` gives after consuming rows
+        ``< j`` (attention runs the decode softmax over the gathered table;
+        on the CPU bit for bit at the tests' widths, PERF.md decision a),
+        which makes greedy speculative decoding token-exact against the
+        non-speculative engine (``engine/spec.py``).  ``valid[b] == 0``
+        leaves the slot as it was; rows at or past ``valid[b]`` write
+        nothing and give garbage logits."""
+        from repro_torch.engine.paged import BSTATE_KEYS, span_targets
+        cfg = self.cfg
+        B, C = tokens.shape
+        x = embed_tokens(params["embed"], tokens)
+        start, valid = start.to(torch.int32), valid.to(torch.int32)
+        pools = cache["stack"]["L0"]
+        bs = pools["pk"].shape[2]
+        wblk, woff = span_targets({k: cache[k] for k in BSTATE_KEYS}, start, valid, C, bs,
+                                  cache["tbl"].shape[1] * bs, False)
+        pctx = {"start": start, "valid": valid, "tbl": cache["tbl"], "wblk": wblk.long(),
+                "woff": woff.long()}
+        stack = params["stack"]["L0"]
+        for i in range(n_stacked(stack)):
+            x = apply_layer_verify_paged(layer_view(stack, i), x, layer_view(pools, i),
+                                         pctx, cfg)
+        x = apply_norm(params["final_norm"], x, cfg.norm_eps)
+        logits = lm_logits(params["embed"], x)
         return logits, {**cache, "lengths": torch.where(valid > 0, start + valid,
                                                          cache["lengths"])}
 
