@@ -84,6 +84,25 @@ def setup():
     return ref_model, ref_params, ref_draft, model, params, drafts
 
 
+@pytest.fixture(scope="module")
+def baseline(setup):
+    """The non-speculative engine's outputs for one configuration, served
+    once per module: ``baseline(prompts, gen, serves=1, **engine_kw)``
+    returns one output list per serve of a single engine (a second serve
+    of a prefix-cached engine is warm)."""
+    model, params = setup[3], setup[4]
+    done = {}
+
+    def get(prompts, gen, serves=1, **kw):
+        key = (tuple(map(bytes, prompts)), gen, serves, tuple(sorted(kw.items())))
+        if key not in done:
+            eng = Engine(model, params, **kw)
+            done[key] = [eng.serve(prompts, gen_tokens=gen) for _ in range(serves)]
+        return done[key]
+
+    return get
+
+
 def _min_margin(model, params, prompt, continuation) -> float:
     """Smallest top-2 logit gap / max|logit| over the greedy steps that
     produced ``continuation`` (teacher-forced through the port's model)."""
@@ -173,13 +192,13 @@ def test_composed_spec_serve_matches_reference_engine(setup):
 
 @pytest.mark.parametrize("draft", ["daq", "absmax", "bad"])
 @pytest.mark.parametrize("dynamic", [True, False])
-def test_spec_equals_non_spec_paged(setup, draft, dynamic):
+def test_spec_equals_non_spec_paged(setup, baseline, draft, dynamic):
     """``tests/test_engine_spec.py::test_spec_token_exact_matrix`` (dense)
     and ``test_spec_exact_for_any_draft_even_garbage``: every draft, the
     depth dynamic and pinned."""
     _, _, _, model, params, drafts = setup
     kw = dict(slots=2, cache_len=40, k_steps=4, paged=True, block_size=8)
-    base = Engine(model, params, **kw).serve(PROMPTS, gen_tokens=7)
+    base = baseline(PROMPTS, 7, **kw)[0]
     outs, stats = Engine(model, params, n_spec=3, draft_params=drafts[draft],
                          spec_dynamic=dynamic, check_invariants=True, **kw).serve(
         PROMPTS, gen_tokens=7, return_stats=True)
@@ -195,7 +214,7 @@ def test_spec_equals_non_spec_paged(setup, draft, dynamic):
 
 @pytest.mark.parametrize("draft", ["daq", "bad"])
 @pytest.mark.parametrize("chunk", [8, 12])
-def test_composed_spec_equals_non_spec(setup, draft, chunk):
+def test_composed_spec_equals_non_spec(setup, baseline, draft, chunk):
     """``test_spec_composed_token_exact_matrix``,
     ``test_spec_composed_exact_for_garbage_draft`` and
     ``test_spec_composed_warm_prefix_hit_mid_speculation``: the composed
@@ -205,8 +224,7 @@ def test_composed_spec_equals_non_spec(setup, draft, chunk):
     prompts = _shared_prompts()
     kw = dict(slots=2, cache_len=40, k_steps=4, paged=True, block_size=8, chunk_size=chunk,
               prefix_cache=True)
-    base = Engine(model, params, **kw)
-    want = [base.serve(prompts, gen_tokens=6) for _ in range(2)]
+    want = baseline(prompts, 6, serves=2, **kw)
     eng = Engine(model, params, n_spec=2, draft_params=drafts[draft], check_invariants=True,
                  **kw)
     got = [eng.serve(prompts, gen_tokens=6, return_stats=True) for _ in range(2)]
@@ -263,7 +281,7 @@ def test_spec_sampled_mode_deterministic_and_complete(setup):
 
 @pytest.mark.parametrize("composed", [False, True])
 @pytest.mark.parametrize("draft", ["daq", "bad"])
-@settings(database=None, derandomize=True, max_examples=3, deadline=None)
+@settings(database=None, derandomize=True, max_examples=2, deadline=None)
 @given(st.integers(min_value=0, max_value=10**6))
 def test_spec_stress_randomized(setup, composed, draft, seed):
     """``tests/test_engine_spec.py``'s two stress sweeps: random prompt
