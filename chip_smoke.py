@@ -69,6 +69,18 @@ Phases:
      and one composed dispatch under the sync debug mode; it prints the
      acceptance rates, each serve's tok/s, the agreement with the
      baseline, and how a verify row's bits differ from a decode step's;
+  7e. the rest of the quantizer (``methods_phase``, run after phase 8's
+     serve breakdowns, when phase 5's tree is freed): phase 4's weights
+     (base remade from its seed) quantized with ``daq-per-block`` (block
+     128, sign), served through the decode and prefill routes, its sign
+     rates at least AbsMax's, no search kernel launched, a decode step
+     broken down; a calibration (``collect_input_stats`` over a 4,096-token
+     language: the [V, V] table at the full vocabulary would be 91.9 GB);
+     ``smoothquant`` and ``awq`` at channel granularity with it, each served
+     with no kernel launched (equalized tensors take the dequantize path);
+     quantize seconds, peak GB and tok/s of each; then the reduced GLM-4-9B
+     quantized by the three on the card and on the CPU (alphas, codes and
+     ``eq_scale`` equal; AWQ's exponents equal where decided);
   8. break one decode step, one prefill and one quantize (GLM-4-9B cut to
      4 layers at full width) down: host time, device busy time, kernel
      launches, the decode route's device time and the kernels that take
@@ -113,6 +125,9 @@ SYSTEM_PROMPT, SUFFIX_MIN, SUFFIX_MAX, CHUNK = 128, 16, 368, 64
 # the speculative phase: up to 4 draft tokens a round, so a round verifies
 # SLOTS * 5 = 40 rows of the bf16 tree
 N_SPEC = 4
+# the methods phase's calibration language: 4,096 tokens (its [V, V] float32
+# bigram table is 67 MB; at GLM-4-9B's vocabulary it would be 91.9 GB)
+CALIB_VOCAB = 4096
 
 
 def log(*a):
@@ -797,9 +812,16 @@ def host_us(torch, call, reps: int = 500) -> float:
 def make_weights(torch, model, seed: int):
     """Post weights from the model's own init, base = post + N(0, (1% std)^2)
     per matrix (per layer for stacked leaves); 1-D leaves are shared."""
-    from repro_torch.core.policy import tree_map
     g = torch.Generator(device=model.device).manual_seed(seed)
     post = model.init(g)
+    return post, make_base(torch, post, g)
+
+
+def make_base(torch, post, g):
+    """The base tree of ``make_weights``, drawing its noise from ``g``: a
+    generator in the state ``make_weights`` left it after the init remakes
+    the same base (phase 7e remakes phase 4's after phase 5 freed it)."""
+    from repro_torch.core.policy import tree_map
 
     def perturb(t):
         if t.ndim < 2:
@@ -807,11 +829,11 @@ def make_weights(torch, model, seed: int):
         out = torch.empty_like(t)
         mats = t.reshape(-1, *t.shape[-2:])
         for i, m in enumerate(mats):
-            noise = torch.randn(m.shape, generator=g, device=model.device)
+            noise = torch.randn(m.shape, generator=g, device=m.device)
             out.reshape(-1, *t.shape[-2:])[i] = (m.float() + 0.01 * m.float().std() * noise).to(t.dtype)
         return out
 
-    return post, tree_map(perturb, post)
+    return tree_map(perturb, post)
 
 
 def small_model_agreement(torch, seed: int) -> None:
@@ -944,6 +966,15 @@ def fp32_model_agreement(torch, seed: int) -> dict:
     return launches
 
 
+def leaf_sign_rates_hold(report, name: str) -> None:
+    """Every leaf's chosen sign rate at least its AbsMax one (mean over its
+    layers; each layer's count is at least AbsMax's, so up to rounding)."""
+    for leaf, r in report.per_leaf.items():
+        if r["chosen"]["sign_rate"] < r["default"]["sign_rate"] - 1e-6:
+            raise AssertionError(f"{name}: sign rate {r['chosen']['sign_rate']} below "
+                                 f"AbsMax's {r['default']['sign_rate']} on {leaf}")
+
+
 def main_path(torch, args, records: dict):
     from repro_torch.configs import QuantConfig, get_arch
     from repro_torch.engine import Engine
@@ -958,7 +989,10 @@ def main_path(torch, args, records: dict):
         f"layers={cfg.n_layers} ({cfg.param_count() / 1e9:.3f} B params)")
     model = build_model(cfg)
     t0 = time.perf_counter()
-    post, base = make_weights(torch, model, args.seed)
+    g = torch.Generator(device=model.device).manual_seed(args.seed)
+    post = model.init(g)
+    base_state = g.get_state()          # phase 7e remakes base from here
+    base = make_base(torch, post, g)
     torch.cuda.synchronize()
     log(f"weights: post + base made in {time.perf_counter() - t0:.2f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
@@ -1032,12 +1066,10 @@ def main_path(torch, args, records: dict):
     for side in (report.global_chosen, report.global_default):
         if not all(math.isfinite(v) for v in side.values()):
             raise AssertionError(f"non-finite report metrics {side}")
-    for name, leaf in report.per_leaf.items():
-        if leaf["chosen"]["sign_rate"] < leaf["default"]["sign_rate"] - 1e-6:
-            raise AssertionError(f"DAQ sign rate below AbsMax on {name}")
+    leaf_sign_rates_hold(report, "DAQ")
     log(f"outputs: {len(outputs)} rows of {GEN} tokens in range; first row "
         f"{outputs[0][:12]}...")
-    return model, post, qparams, torch.stack(requests)
+    return model, post, qparams, torch.stack(requests), outputs, base_state
 
 
 def fp8_serve_launches(stats: dict, n_layers: int) -> dict:
@@ -1585,6 +1617,285 @@ def spec_phase(torch, args, model, post, qparams, prompts) -> dict:
     return {"engine": daq, "requests": requests}
 
 
+# ---------------------------------------------------------------------------
+# Phase 7e: the rest of the quantizer (daq-per-block, SmoothQuant, AWQ)
+# ---------------------------------------------------------------------------
+
+def quantize_counted(torch, post, base, qcfg, method: str, **kw):
+    """``quantize(..., mode="storage", method=method)`` with every kernel
+    count zeroed just before and read just after: (tree, report, launches,
+    seconds, peak GB)."""
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.quantize import quantize
+    for k in KERNELS:
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tree, report = quantize(post, base, qcfg, mode="storage", method=method, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return (tree, report, {k.name: k.launches for k in KERNELS}, secs,
+            torch.cuda.max_memory_allocated() / 1e9)
+
+
+def matmul_calls(torch, model, params, tokens) -> int:
+    """``qlinear.matmul`` calls of one full-sequence forward over ``tokens``."""
+    from repro_torch.data.synthetic import _full_logits
+    from repro_torch.quant_runtime import qlinear
+    real, n = qlinear.matmul, [0]
+
+    def counted(x, w):
+        n[0] += 1
+        return real(x, w)
+
+    qlinear.matmul = counted
+    try:
+        _full_logits(model, params, {"tokens": tokens})
+    finally:
+        qlinear.matmul = real
+    return n[0]
+
+
+def methods_phase(torch, args, model, post, prompts, base_state, daq_outputs) -> None:
+    """Phase 7e: the quantizer's other methods at full width and depth on
+    phase 4's weights (``post``, and ``base`` remade from ``base_state``),
+    each tree serving phase 6's 8 requests (128 + 64 tokens) through
+    ``Engine(model, tree, slots=8, k_steps=8)``:
+
+    * ``daq-per-block`` (block 128, E4M3, sign), storage mode: quantize
+      seconds, peak GB, alpha and code-and-scale hashes; every leaf's sign
+      rate at least AbsMax's; no sweep and no quantizer launch (the plain
+      path, as in the reference); the serve's launches on the decode and
+      prefill routes (``fp8_serve_launches``) and none on the CUDA-core
+      route; tok/s, agreement with phase 6's DAQ tokens, and a decode
+      step's breakdown beside phase 8's of the DAQ tree;
+    * calibration: ``collect_input_stats(model, post, LanguageSpec(vocab=
+      CALIB_VOCAB), n_batches=2)``: seconds; 2 records per
+      ``qlinear.matmul`` call of one forward; every maximum finite;
+      ``RECORD`` None after;
+    * ``smoothquant`` and ``awq`` at channel granularity (Table 2's
+      setting), E4M3, storage mode, with that calibration: seconds, peak
+      GB, every ``eq_scale`` finite in [1e-4, 1], a serve that launches no
+      kernel at all (equalized tensors take the dequantize path), tok/s,
+      tokens in range; a decode step of the smoothquant tree broken down;
+    * ``methods_agreement``: the reduced GLM-4-9B on the card against the
+      CPU.
+
+    The calibration language has 4,096 tokens, not GLM-4-9B's 151,552: its
+    bigram table is [V, V] float32, 91.9 GB at the full vocabulary (the
+    reference cannot build it either); its ids are valid GLM-4-9B ids."""
+    from repro_torch.configs import QuantConfig
+    from repro_torch.core.policy import tree_leaves_with_path
+    from repro_torch.data import LanguageSpec
+    from repro_torch.data.synthetic import sample_batch
+    from repro_torch.engine import Engine
+    from repro_torch.quant_runtime import qlinear
+    from repro_torch.quantize import collect_input_stats
+    cfg = model.cfg
+    requests = list(prompts)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=model.device)
+    g.set_state(base_state)
+    base = make_base(torch, post, g)
+    torch.cuda.synchronize()
+    log(f"methods phase: phase 4's base remade in {time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+
+    def serve(name, tree, fp8: bool):
+        """Serve ``requests``; every kernel count must be 0 but the fp8
+        routes' of a bf16 serve of a block-128 tree (``fp8``)."""
+        engine = Engine(model, tree, slots=SLOTS, cache_len=PROMPT + GEN, k_steps=K_STEPS)
+        outputs, stats, launches, secs = counted_serve(torch, engine, requests)
+        dec = stats["counters"]["tokens"]
+        log(f"methods phase, {name} serve: {len(outputs)} requests x {GEN} tokens in "
+            f"{secs:.2f} s ({SLOTS * GEN / secs:.1f} tok/s end to end); decode {dec} tokens "
+            f"in {stats['decode_s']:.3f} s = {dec / stats['decode_s']:.1f} tok/s "
+            f"({stats['decode_s'] / stats['decode_steps'] * 1e3:.2f} ms per step of {SLOTS} "
+            f"slots); launches {json.dumps(launches)}; vs phase 6's DAQ tokens: "
+            f"{agreement(outputs, daq_outputs)}")
+        want = dict.fromkeys(launches, 0)
+        if fp8:
+            want.update(fp8_serve_launches(stats, cfg.n_layers))
+        if launches != want:
+            raise AssertionError(f"methods phase, {name}: launches {launches}, expected {want}")
+        for out in outputs:
+            if len(out) != GEN or not all(0 <= t < cfg.vocab_size for t in out):
+                raise AssertionError(f"methods phase, {name}: bad output row {out[:8]}... "
+                                     f"({len(out)} tokens)")
+
+    # ---- daq-per-block ----
+    tree, report, launches, secs, peak = quantize_counted(torch, post, base, QuantConfig(),
+                                                          "daq-per-block")
+    log(report.summary())
+    log(f"methods phase, daq-per-block: quantize {secs:.2f} s for {report.n_quantized} "
+        f"tensors, peak {peak:.2f} GB; chosen-alpha hash {alpha_hash(report)}, "
+        f"code-and-scale hash {code_hash(torch, tree)} over {leaf_layers(report)} "
+        f"leaf-layers; launches {json.dumps(launches)}")
+    if launches["scale_search"] or launches["fp8_quant"]:
+        raise AssertionError(f"daq-per-block launched a search kernel: {launches}")
+    leaf_sign_rates_hold(report, "daq-per-block")
+    serve("daq-per-block", tree, fp8=True)
+    breakdowns(torch, model, tree, prompts, tree="per-block tree ", prefill=False)
+    del tree
+    torch.cuda.empty_cache()
+
+    # ---- calibration ----
+    spec = LanguageSpec(vocab=CALIB_VOCAB)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    records = collect_input_stats(model, post, spec, n_batches=2)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    toks = sample_batch(torch.Generator(device=model.device).manual_seed(0), spec, 4, 64,
+                        device=model.device)[:, :-1]
+    calls = matmul_calls(torch, model, post, toks)
+    log(f"methods phase, calibration: {len(records)} records from 2 batches of 4 x 64 "
+        f"tokens (LanguageSpec(vocab={CALIB_VOCAB})) in {calib_s:.2f} s; one forward makes "
+        f"{calls} qlinear.matmul calls")
+    if len(records) != 2 * calls or calls != 7 * cfg.n_layers + 1:
+        raise AssertionError(f"calibration: {len(records)} records, {calls} calls a forward")
+    if qlinear.RECORD is not None:
+        raise AssertionError("calibration left qlinear.RECORD set")
+    if not all(bool(torch.isfinite(m).all()) for _, _, m in records):
+        raise AssertionError("calibration: a non-finite activation maximum")
+
+    # ---- smoothquant, awq ----
+    for method in ("smoothquant", "awq"):
+        tree, report, launches, secs, peak = quantize_counted(
+            torch, post, base, QuantConfig(granularity="channel"), method, calib=records)
+        log(f"methods phase, {method}: quantize {secs:.2f} s for {report.n_quantized} "
+            f"tensors ({report.quantized_bytes / 1e9:.2f} GB), peak {peak:.2f} GB; "
+            f"launches {json.dumps(launches)}")
+        log(report.summary())
+        if any(launches.values()):
+            raise AssertionError(f"{method} launched a kernel on its quantize: {launches}")
+        for path, leaf in tree_leaves_with_path(tree):
+            if hasattr(leaf, "granularity"):
+                e = leaf.eq_scale
+                if e is None or not bool((torch.isfinite(e) & (e >= 1e-4) & (e <= 1)).all()):
+                    raise AssertionError(f"{method}: eq_scale of {'/'.join(path)} not finite "
+                                         f"in [1e-4, 1]")
+        serve(method, tree, fp8=False)
+        if method == "smoothquant":     # awq's tree takes the same path
+            breakdowns(torch, model, tree, prompts, tree="smoothquant tree ", prefill=False)
+        del tree
+        torch.cuda.empty_cache()
+    del base
+    torch.cuda.empty_cache()
+    methods_agreement(torch, args.seed)
+
+
+def methods_agreement(torch, seed: int) -> None:
+    """The reduced GLM-4-9B (bf16, base = post + 1 % noise) on the card
+    against the CPU: ``daq-per-block`` (sign, blocks of 32 and channels)
+    with equal alphas and codes; ``smoothquant`` at channel granularity with
+    equal ``eq_scale`` and codes, given the same activation maxima on both
+    devices (one CPU calibration, keyed on each device by that device's
+    fingerprints: ``mean|w|`` is reduced in another order on the card);
+    ``awq``'s chosen exponents of both runs, equal wherever the two smallest
+    errors differ by more than 1e-6 relative."""
+    from repro_torch.configs import QuantConfig, get_arch, reduced
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.policy import tree_leaves_with_path, tree_map
+    from repro_torch.data import LanguageSpec
+    from repro_torch.models import build_model
+    from repro_torch.quant_runtime import qlinear
+    from repro_torch.quantize import collect_input_stats, quantize
+    from repro_torch.quantize.equalize import AWQQuantizer, awq_trials
+    cfg = reduced(get_arch("glm4-9b"))
+    m_cpu = build_model(cfg, device="cpu")
+    g = torch.Generator().manual_seed(seed + 3)
+    post = m_cpu.init(g)
+    base = tree_map(lambda t: t if t.ndim < 2 else
+                    (t.float() + 0.01 * t.float().std()
+                     * torch.randn(t.shape, generator=g)).to(t.dtype), post)
+    gpu = lambda tree: tree_map(lambda t: t.cuda(), tree)
+    post_g, base_g = gpu(post), gpu(base)
+
+    def codes_equal(a, b, name):
+        for (path, x), (_, y) in zip(tree_leaves_with_path(a), tree_leaves_with_path(b)):
+            if hasattr(x, "granularity"):
+                same = torch.equal(x.data.view(torch.uint8), y.data.cpu().view(torch.uint8)) \
+                    and torch.equal(x.scale, y.scale.cpu()) \
+                    and (x.eq_scale is None or torch.equal(x.eq_scale, y.eq_scale.cpu()))
+                if not same:
+                    raise AssertionError(f"small model, {name}: codes, scales or eq_scale "
+                                         f"differ on {'/'.join(path)}")
+
+    for gran in ("block", "channel"):
+        q = QuantConfig(granularity=gran, block_size=32)
+        qc, rc = quantize(post, base, q, mode="storage", method="daq-per-block")
+        qg, rg = quantize(post_g, base_g, q, mode="storage", method="daq-per-block")
+        for name, leaf in rc.per_leaf.items():
+            if not (leaf["alpha"] == rg.per_leaf[name]["alpha"]).all():
+                raise AssertionError(f"small model, daq-per-block {gran}: alphas differ on "
+                                     f"{name}")
+        codes_equal(qc, qg, f"daq-per-block {gran}")
+    log("methods agreement (reduced GLM-4-9B, card vs CPU): daq-per-block alphas and codes "
+        "equal at blocks of 32 and per channel")
+
+    stats: dict = {}
+    for shape, fp, amax in collect_input_stats(m_cpu, post, LanguageSpec(vocab=cfg.vocab_size),
+                                               n_batches=1):
+        key = (shape, fp)
+        stats[key] = amax if key not in stats else torch.maximum(stats[key], amax)
+    cal_c, cal_g = [], []
+    for (path, leaf), (_, leaf_g) in zip(tree_leaves_with_path(post),
+                                         tree_leaves_with_path(post_g)):
+        if leaf.ndim < 2 or "norm" in path[-1] or "bias" in path[-1]:
+            continue
+        for w, wg in zip(leaf.reshape(-1, *leaf.shape[-2:]), leaf_g.reshape(-1, *leaf.shape[-2:])):
+            amax = stats.get((tuple(w.shape), qlinear.weight_fingerprint(w)))
+            if amax is not None:                  # the embedding table has no record
+                cal_c.append((tuple(w.shape), qlinear.weight_fingerprint(w), amax))
+                cal_g.append((tuple(w.shape), qlinear.weight_fingerprint(wg), amax.cuda()))
+    q = QuantConfig(granularity="channel")
+    qc, _ = quantize(post, base, q, mode="storage", method="smoothquant", calib=cal_c)
+    qg, _ = quantize(post_g, base_g, q, mode="storage", method="smoothquant", calib=cal_g)
+    codes_equal(qc, qg, "smoothquant")
+
+    # awq: each run's exponent per leaf-layer, read off its eq_scale (the
+    # normalized candidate of ``awq_trials`` it equals)
+    runs = [quantize(t, b, q, mode="storage", method="awq", calib=c)[0]
+            for t, b, c in ((post, base, cal_c), (post_g, base_g, cal_g))]
+    fmt = get_format(q.fmt)
+    exps, n_decided = ([], []), 0
+    for (path, leaf), *qs in zip(tree_leaves_with_path(post), *(tree_leaves_with_path(r)
+                                                                 for r in runs)):
+        if not hasattr(qs[0][1], "granularity") or "embed" in path[-1]:
+            continue
+        n = leaf.shape[0] if leaf.ndim == 3 else 1
+        for t in range(n):
+            found = []
+            for (_, qt), w_side in zip(qs, (leaf, leaf.cuda())):
+                w = (w_side[t] if leaf.ndim == 3 else w_side).float()
+                e = qt.eq_scale[t] if leaf.ndim == 3 else qt.eq_scale
+                amax = [c for c in (cal_c if w.device.type == "cpu" else cal_g)
+                        if c[1] == qlinear.weight_fingerprint(w)][0][2]
+                s_tries, errs = awq_trials(w, amax.float().clamp_min(1e-6),
+                                           w.abs().amax(dim=1).clamp_min(1e-6), q, fmt)
+                norm = (s_tries / s_tries.amax(dim=1, keepdim=True).clamp_min(1e-6)).clamp_min(1e-4)
+                k = [i for i in range(len(norm)) if torch.equal(norm[i], e)]
+                if k != [int(torch.argmin(errs))]:
+                    raise AssertionError(f"small model, awq: {'/'.join(path)}[{t}]'s eq_scale "
+                                         f"is candidate {k}, argmin {int(torch.argmin(errs))}")
+                found.append((k[0], errs.cpu()))
+            (kc, errs_c), (kg, _) = found
+            exps[0].append(AWQQuantizer.GRID[kc])
+            exps[1].append(AWQQuantizer.GRID[kg])
+            two = torch.sort(errs_c).values[:2]
+            if float(two[1] - two[0]) > 1e-6 * float(two[0]):
+                n_decided += 1
+                if kc != kg:
+                    raise AssertionError(f"small model, awq: exponent {AWQQuantizer.GRID[kg]} "
+                                         f"on the card, {AWQQuantizer.GRID[kc]} on the CPU, "
+                                         f"errors {errs_c.tolist()}")
+    log(f"methods agreement: smoothquant eq_scale and codes equal over {len(cal_c)} "
+        f"leaf-layers; awq exponents of the CPU run {exps[0]}, of the card's {exps[1]} "
+        f"({n_decided} decided by more than 1e-6 relative, equal)")
+
+
 def spec_breakdown(torch, phase: dict) -> None:
     """One speculative round at (ii)'s state (its first admission: 8 slots
     at 128 tokens) and its parts: the round (``make_decode_dispatch`` with
@@ -1716,8 +2027,10 @@ def device_breakdown(torch, label: str, run, per: int, unit: str, top: int = 8,
             log(f"  {t / per:8.3f} ms/{unit}  {n / per:6.0f} launches/{unit}  {name[:90]}")
 
 
-def breakdowns(torch, model, qparams, prompts, steps: int = 8) -> None:
-    """Where a decode step and a prefill of the fp8 model go."""
+def breakdowns(torch, model, qparams, prompts, steps: int = 8, tree: str = "",
+               prefill: bool = True) -> None:
+    """Where a decode step and (with ``prefill``) a prefill of the fp8 model
+    ``qparams`` go; ``tree`` names it in the lines (phase 5's by default)."""
     _, cache = model.prefill(qparams, {"tokens": prompts}, cache_len=PROMPT + 3 * steps)
     tok = prompts[:, :1]
 
@@ -1727,9 +2040,11 @@ def breakdowns(torch, model, qparams, prompts, steps: int = 8) -> None:
             _, cache = model.decode_step(qparams, tok, cache)
         torch.cuda.synchronize()
 
-    device_breakdown(torch, f"decode ({steps} steps of {prompts.shape[0]} slots)", decode,
-                     steps, "step")
+    device_breakdown(torch, f"{tree}decode ({steps} steps of {prompts.shape[0]} slots)",
+                     decode, steps, "step")
     del cache
+    if not prefill:
+        return
 
     def prefill():
         model.prefill(qparams, {"tokens": prompts})
@@ -1932,7 +2247,7 @@ def main() -> int:
     # the CUDA-core kernel's path is the float32 model's (bf16 serves never
     # reach it): its launches are counted there
     records["fp8_matmul"]["launches"] = fp32_launches["fp8_matmul"]
-    model, post, qparams, prompts = main_path(torch, args, records)
+    model, post, qparams, prompts, daq_outputs, base_state = main_path(torch, args, records)
     t0 = time.perf_counter()
     phase = paged_phase(torch, args, model, qparams)
     log(f"paged phase passed in {time.perf_counter() - t0:.1f} s")
@@ -1947,10 +2262,18 @@ def main() -> int:
     paged_breakdown(torch, phase)
     chunk_breakdown(torch, model, qparams, phase["requests"], phase["engines"]["parity"])
     spec_breakdown(torch, spec)
-    del phase, spec, qparams, post
+    del phase, spec, qparams
     torch.cuda.empty_cache()
+    log(f"serve breakdowns took {time.perf_counter() - t0:.1f} s")
+    # phase 7e runs here, with phase 5's tree and the engines of 7b-7d freed
+    t0 = time.perf_counter()
+    methods_phase(torch, args, model, post, prompts, base_state, daq_outputs)
+    log(f"methods phase passed in {time.perf_counter() - t0:.1f} s")
+    del post
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     quantize_breakdown(torch, args.seed)
-    log(f"breakdowns took {time.perf_counter() - t0:.1f} s")
+    log(f"quantize breakdown took {time.perf_counter() - t0:.1f} s")
 
     sources = {"scale_search": ("src/repro_torch/csrc/scale_search.cu",
                                 "src/repro/kernels/scale_search/kernel.py:79"),

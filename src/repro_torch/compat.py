@@ -3,8 +3,9 @@
 ``params_from_jax(tree)`` takes a tree as the reference holds it after a
 device-to-host copy (``jax.device_get``): nested dicts whose leaves are
 numpy arrays, and quantized leaves that carry ``data``, ``scale``, ``fmt``,
-``granularity``, ``block_size`` and ``out_dtype`` attributes (the
-reference's ``QuantizedTensor``).  bfloat16 and fp8 arrays are reinterpreted
+``granularity``, ``block_size``, ``out_dtype`` and ``eq_scale`` attributes
+(the reference's ``QuantizedTensor``; ``eq_scale`` is None unless the tensor
+was equalized by SmoothQuant / AWQ).  bfloat16 and fp8 arrays are reinterpreted
 through ``.view(np.uint16)`` / ``.view(np.uint8)``, so neither JAX nor
 ``ml_dtypes`` is imported here.
 """
@@ -27,12 +28,12 @@ _BIT_VIEWS = {
 
 def tensor_from_numpy(a) -> torch.Tensor:
     """A CPU torch copy of a numpy array, bf16 / fp8 included."""
-    a = np.asarray(a)
+    a = np.array(a, order="C")          # a copy; a 0-d array stays 0-d
     view = _BIT_VIEWS.get(a.dtype.name)
     if view is None:
-        return torch.from_numpy(np.ascontiguousarray(a).copy())
+        return torch.from_numpy(a)
     bits, tdtype = view
-    raw = torch.from_numpy(np.ascontiguousarray(a).view(bits).copy())
+    raw = torch.from_numpy(a.view(bits))
     if bits is np.uint16:
         raw = raw.view(torch.int16)     # torch views 2-byte ints as bf16
     return raw.view(tdtype)
@@ -44,10 +45,10 @@ def params_from_jax(tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: params_from_jax(v) for k, v in tree.items()}
     if hasattr(tree, "granularity") and hasattr(tree, "data"):
-        if getattr(tree, "eq_scale", None) is not None:
-            raise NotImplementedError("equalized (SmoothQuant/AWQ) tensors are not ported")
+        eq = getattr(tree, "eq_scale", None)
         return QuantizedTensor(data=tensor_from_numpy(tree.data),
                                scale=tensor_from_numpy(tree.scale),
                                fmt=tree.fmt, granularity=tree.granularity,
-                               block_size=tree.block_size, out_dtype=tree.out_dtype)
+                               block_size=tree.block_size, out_dtype=tree.out_dtype,
+                               eq_scale=None if eq is None else tensor_from_numpy(eq))
     return tensor_from_numpy(tree)

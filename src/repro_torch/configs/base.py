@@ -173,7 +173,8 @@ class QuantConfig:
     """Quantization settings (paper Sec. 2.2-2.4 plus baselines).
 
     ``method`` selects the algorithm from the ``repro_torch.quantize``
-    registry: "daq" (paper Alg. 1, objective = ``metric``) or "absmax".
+    registry: "daq" (paper Alg. 1, objective = ``metric``), "daq-per-block",
+    "absmax", "smoothquant" or "awq".
     """
 
     method: str = "daq"              # registry key (repro_torch.quantize)

@@ -110,6 +110,26 @@ def partial_sums(dp: torch.Tensor, dq: torch.Tensor, axes) -> dict[str, torch.Te
     }
 
 
+def objective_from_partials(name: str, p: dict[str, torch.Tensor],
+                            hybrid_lambda: float = 0.5) -> torch.Tensor:
+    """Per-block objective from partial sums (``objective`` restricted to a
+    block: the per-block alpha search scores each candidate with it).  The
+    rates multiply by ``1/count``: the reference's compile rewrites the
+    division by its constant count so, and the sign objective is then the
+    reference's bit for bit."""
+    inv = 1.0 / p["count"].clamp_min(1.0)
+    if name == "mse":
+        return -p["sq_err"] * inv
+    if name == "sign":
+        return p["n_sign_match"] * inv
+    cos = p["dot"] / (torch.sqrt(p["dp_sq"]) * torch.sqrt(p["dq_sq"])).clamp_min(EPS)
+    if name == "cosine":
+        return cos
+    if name == "hybrid":
+        return hybrid_lambda * (p["n_sign_match"] * inv) + (1 - hybrid_lambda) * cos
+    raise ValueError(f"unknown metric {name!r}")
+
+
 def metrics_from_partials(p: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
     n = p["count"].clamp_min(1.0)
     return {

@@ -9,7 +9,12 @@ the search never scores worse than AbsMax on the chosen metric.
 
 The reference's ``lax.map`` over candidates is a Python loop here; the
 fused variant evaluates every candidate of a stage in one pass over the
-weights with the sweep kernel.  Per-block alpha is not ported yet.
+weights with the sweep kernel.
+
+Beyond-paper extension (``per_block_alpha=True``): an independent alpha per
+block / channel, selected on a dense grid by the per-block objective
+(``_search_per_block``).  For SignRate and MSE the objective is separable
+across blocks, so the per-block argmax is the global optimum over the grid.
 """
 from __future__ import annotations
 
@@ -21,17 +26,21 @@ from repro_torch.configs.base import QuantConfig
 from repro_torch.core import metrics as M
 from repro_torch.core.formats import f32_reciprocal, get_format
 from repro_torch.core.granularity import (absmax, apply_qdq, dequantize_stored,
-                                          quantize_store, scale_from_absmax)
+                                          pad_to_blocks, quantize_store,
+                                          scale_from_absmax, to_blocked)
 
 
 @dataclass
 class SearchResult:
     """Result of quantizing one weight tensor (``[I, O]`` or stacked ``[L, I, O]``)."""
-    alpha: torch.Tensor         # chosen multiplier: scalar, or [L] when stacked
+    alpha: torch.Tensor         # chosen multiplier(s): scalar or per block /
+                                # channel, with a leading [L] when stacked
     scale: torch.Tensor         # final scale(s) = alpha * s0
     w_q: torch.Tensor           # storage representation (fp8/int8), layout of W
     chosen: dict                # metrics + partial sums at the chosen alpha
     default: dict               # metrics + partial sums at alpha = 1 (AbsMax)
+    eq_scale: torch.Tensor | None = None  # per-in-channel equalization vector
+                                          # (SmoothQuant/AWQ); w_q stores W*s
 
 
 def linspace(start, stop, num: int, device) -> torch.Tensor:
@@ -65,9 +74,9 @@ def search_scale(w_post: torch.Tensor, w_base: torch.Tensor,
     (block fp8_e4m3 only; same argmax by construction).  Denormal weights
     are read as zeros (``metrics.daz``), as the reference's compiled
     search reads them."""
-    if qcfg.per_block_alpha:
-        raise NotImplementedError("per_block_alpha is not ported to repro_torch yet")
     w_post, w_base = M.daz(w_post).float(), M.daz(w_base).float()
+    if qcfg.per_block_alpha:
+        return _search_per_block(w_post, w_base, qcfg)
     if qcfg.use_fused_kernel and qcfg.granularity == "block" \
             and qcfg.fmt == "fp8_e4m3":
         return _search_fused(w_post, w_base, qcfg)
@@ -108,16 +117,22 @@ def metrics_and_partials(dp: torch.Tensor, dq: torch.Tensor) -> dict:
 
 def _finalize(w_post, w_base, dp, alpha, amax, qcfg: QuantConfig) -> SearchResult:
     """Storage codes at the chosen alpha plus the chosen / default metrics.
-    Block fp8_e4m3 codes come from the fp8_quant kernel, bit-equal to
-    ``quantize_store`` at ``scale = scale_from_absmax(amax, alpha)``."""
+    Block fp8_e4m3 codes at one alpha come from the fp8_quant kernel,
+    bit-equal to ``quantize_store`` at ``scale = scale_from_absmax(amax,
+    alpha)``; the kernel takes one alpha per tensor, as the reference's
+    does, so a per-block or per-channel alpha takes ``quantize_store``."""
     fmt = get_format(qcfg.fmt)
     gran, bs = qcfg.granularity, qcfg.block_size
-    if gran == "block" and qcfg.fmt == "fp8_e4m3":
+    if gran == "block" and qcfg.fmt == "fp8_e4m3" and alpha.ndim == 0:
         from repro_torch.kernels.fp8_quant import ops as FQ
         w_q, scales = FQ.quantize_fp8(w_post, alpha, block=bs)
         scale = scales[:, None, :, None]
     else:
-        scale = scale_from_absmax(amax, alpha, fmt)
+        # the reference's compile keeps ``alpha * s0`` as written for the
+        # per-block search's alphas: ``alpha * (amax * (1/Qmax))``, not
+        # ``scale_from_absmax``'s association
+        scale = (alpha * scale_from_absmax(amax, 1.0, fmt) if qcfg.per_block_alpha
+                 else scale_from_absmax(amax, alpha, fmt))
         w_q = quantize_store(w_post, scale, gran, fmt, bs)
     dq = dequantize_stored(w_q, scale, gran, fmt, bs, torch.float32).sub_(w_base)
     chosen = metrics_and_partials(dp, dq)
@@ -159,3 +174,83 @@ def _search_fused(w_post, w_base, qcfg: QuantConfig) -> SearchResult:
     best_alpha = stage_best(torch.cat([best_alpha.reshape(1),
                                        linspace(lo, hi, qcfg.n_fine, dev)]))
     return _finalize(w_post, w_base, w_post - w_base, best_alpha, amax, qcfg)
+
+
+# ---------------------------------------------------------------------------
+# Beyond-paper: independent alpha per block / channel on a dense grid.
+# ---------------------------------------------------------------------------
+
+# elements of one slice of the per-block objectives: the candidates' fp32
+# temporaries stay near 1 GB whatever the leaf (the [151552, 4096] embedding
+# of GLM-4-9B is 2.5 GB in fp32); blocks and channels are independent, so a
+# slice changes no block's objective
+_SLICE = 1 << 26
+
+
+def _candidate_grid(qcfg: QuantConfig, device) -> torch.Tensor:
+    """The per-block grid: the incumbent alpha = 1, then the dense grid
+    ``linspace(alpha_min, alpha_max, n_coarse + n_fine)`` (constant
+    endpoints, which the reference's compile folds to the port's
+    ``linspace`` bit for bit)."""
+    return torch.cat([torch.ones(1, dtype=torch.float32, device=device),
+                      linspace(qcfg.alpha_min, qcfg.alpha_max,
+                               qcfg.n_coarse + qcfg.n_fine, device)])
+
+
+def per_block_objectives(w_post: torch.Tensor, w_base: torch.Tensor,
+                         qcfg: QuantConfig) -> tuple[torch.Tensor, torch.Tensor]:
+    """(grid [n], objectives [n, ...]) of the per-block search on float32
+    ``w_post`` / ``w_base``: ``[n, O]`` per channel, ``[n, I/bs, O/bs]`` per
+    block (scored on the zero-padded blocked view, so a ragged block counts
+    its pad zeros as sign matches over ``bs * bs``, as the reference does),
+    ``[n]`` per tensor (the whole-tensor objective)."""
+    fmt = get_format(qcfg.fmt)
+    gran, bs, metric, lam = qcfg.granularity, qcfg.block_size, qcfg.metric, qcfg.hybrid_lambda
+    grid = _candidate_grid(qcfg, w_post.device)
+    amax = absmax(w_post, gran, bs)
+
+    def score(wp, wb, amax, gran, axes):
+        dp = wp - wb
+        objs = []
+        for a in grid:
+            wq = apply_qdq(wp, scale_from_absmax(amax, a, fmt), gran, fmt, bs)
+            if axes is None:
+                objs.append(M.objective(metric, dp, wq.sub_(wb), lam))
+            else:
+                p = M.partial_sums(dp, wq.sub_(wb), axes)
+                objs.append(M.objective_from_partials(metric, p, lam))
+            del wq
+        return torch.stack(objs)
+
+    if gran == "tensor":
+        return grid, score(w_post, w_base, amax, "tensor", None)
+    if gran == "channel":        # channels are columns: slice the columns
+        I, O = w_post.shape
+        step = max(1, _SLICE // I)
+        return grid, torch.cat([score(w_post[:, c:c + step], w_base[:, c:c + step],
+                                      amax[:, c:c + step], "channel", (0,))
+                                for c in range(0, O, step)], dim=1)
+    # blocks: the padded blocked view, a slice of whole block rows at a time
+    wp, _ = pad_to_blocks(w_post, bs)
+    wb, _ = pad_to_blocks(w_base, bs)
+    rows = max(1, _SLICE // (bs * wp.shape[1]))
+    objs = []
+    for r in range(0, wp.shape[0] // bs, rows):
+        sl = slice(r * bs, (r + rows) * bs)
+        # tensor granularity on the blocked view is the reference's
+        # ``qdq(to_blocked(wp), a * s0)``: an elementwise broadcast
+        objs.append(score(to_blocked(wp[sl], bs), to_blocked(wb[sl], bs),
+                          amax[r:r + rows], "tensor", (1, 3)))
+    return grid, torch.cat(objs, dim=1)
+
+
+def _search_per_block(w_post, w_base, qcfg: QuantConfig) -> SearchResult:
+    """An independent alpha per block / channel: the first best candidate of
+    the grid for each (``torch.argmax`` returns the first maximum, as
+    ``jnp.argmax`` does, so a tie lands on grid index 0: alpha = 1)."""
+    grid, objs = per_block_objectives(w_post, w_base, qcfg)
+    alpha = grid[torch.argmax(objs, dim=0)]
+    if qcfg.granularity == "block":
+        alpha = alpha[:, None, :, None]         # broadcasts against the blocked view
+    amax = absmax(w_post, qcfg.granularity, qcfg.block_size)
+    return _finalize(w_post, w_base, w_post - w_base, alpha, amax, qcfg)

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.common import dense_init
+from repro_torch.models.common import apply_rope, dense_init, rope_cos_sin
 from repro_torch.models.flash import NEG_INF, _tile_scores, flash_attention
 from repro_torch.quant_runtime import qlinear
 
@@ -82,6 +82,20 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0, softcap: float 
     kv_off = zeros if kv_offsets is None else kv_offsets.to(torch.int32)
     out = flash_attention(qg, k, v, mask, q_off, kv_off, causal, window, softcap, cq, ck)
     return out.reshape(B, nq * cq, H, hd)[:, :Sq]
+
+
+def self_attn_train(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Full causal self-attention sublayer over a whole sequence, no cache
+    (the reference's ``self_attn_train`` for decoder stacks)."""
+    B, S, _ = x.shape
+    q, k, v = qkv_proj(p, x, cfg)
+    if cfg.rope_theta > 0:
+        cos, sin = rope_cos_sin(torch.arange(S, device=x.device)[None],
+                                cfg.resolved_head_dim, cfg.rope_theta)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    out = chunked_attention(q, k, v, causal=True, window=cfg.sliding_window,
+                            softcap=cfg.attn_logit_softcap)
+    return qlinear.matmul(out.reshape(B, S, -1), p["wo"])
 
 
 def decode_attention(q, k_cache, v_cache, lengths, *, window: int = 0,

@@ -15,6 +15,8 @@ the cache's top level, as the reference's does; ``prefill_chunk_paged``
 runs one piece of each slot's prompt through that cache (chunked prefill,
 prefix-hit tails), and ``verify_chunk_paged`` a speculative round's draft
 tokens (each row the decode step at its position, on the CPU bit for bit).
+``run_stack_train`` is the full-sequence forward with no cache that
+calibration walks (``data/synthetic.py::_full_logits``).
 """
 from __future__ import annotations
 
@@ -211,6 +213,26 @@ def apply_layer_prefill(p: dict, x, cache: dict, cfg: ModelConfig, tiles=(0, 0))
     cache["k"][:, :S] = k[:, :sc].to(cache["k"].dtype)
     cache["v"][:, :S] = v[:, :sc].to(cache["v"].dtype)
     return x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm_eps))
+
+
+def apply_layer_train(p: dict, x, cfg: ModelConfig):
+    """Pre-norm residual layer over a whole sequence, no cache (the
+    reference's ``apply_layer_train`` for a dense layer; its auxiliary loss
+    is the MoE router's, 0 here)."""
+    x = x + A.self_attn_train(p["attn"], apply_norm(p["ln1"], x, cfg.norm_eps), cfg)
+    return x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm_eps))
+
+
+@torch.no_grad()
+def run_stack_train(stack: dict, x, cfg: ModelConfig):
+    """The forward half of the reference's ``run_stack_train``: the stacked
+    layers ``stack`` (``params["stack"]["L0"]``) applied in order to ``x``
+    [B, S, D], each layer's ``qlinear.matmul``s in the reference's order.
+    The reference walks its scan eagerly for calibration
+    (``flags["unroll_layers"]``); this loop always is eager."""
+    for i in range(n_stacked(stack)):
+        x = apply_layer_train(layer_view(stack, i), x, cfg)
+    return x
 
 
 class Model:

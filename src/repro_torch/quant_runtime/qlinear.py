@@ -6,13 +6,32 @@ routes through :func:`matmul`, so a weight leaf may be a dense tensor or a
 are block multiples goes to the fused dequant-matmul (``kernels.fp8_matmul``:
 the CUDA kernel on the GPU, its plain version on the CPU); every other
 quantized weight is dequantized and multiplied.  The block-scale kernel is
-never handed a channel- or tensor-granularity tensor.
+never handed a channel- or tensor-granularity tensor, nor an equalized one
+(its ``eq_scale`` divides the dequantized rows, which the kernel does not).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.quant_runtime.qparams import QuantizedTensor
+from repro_torch.quant_runtime.qparams import QuantizedTensor, unequalize
+
+# Calibration hook: when set to a list, every matmul appends
+# (weight_shape, weight_fingerprint, per-in-channel |x| max) -- the
+# SmoothQuant / AWQ statistics (``quantize/equalize.py``).  When None,
+# matmul adds no operation and no host synchronization.
+RECORD: list | None = None
+
+
+def weight_fingerprint(w) -> tuple:
+    """Identity of a dense 2-D weight for calibration matching:
+    ``(w[0, 0], w[-1, -1], mean |w|)`` of its float32 cast.  Shape alone
+    collides (wq/wo, gate/up share shapes), so statistics are keyed by
+    sampled values.  Calibration and quantization must compute it with this
+    one function on one device: the mean's reduction order, and so its last
+    bits, differ across devices and frameworks (the reference states the
+    same contract for its backends)."""
+    w32 = w.float()
+    return (float(w32[0, 0]), float(w32[-1, -1]), float(w32.abs().mean()))
 
 
 def resolve(w):
@@ -24,11 +43,16 @@ def resolve(w):
 
 def _fused_kernel_applies(w: QuantizedTensor) -> bool:
     return (w.ndim == 2 and w.granularity == "block" and w.fmt == "fp8_e4m3"
+            and w.eq_scale is None
             and w.shape[0] % w.block_size == 0 and w.shape[1] % w.block_size == 0)
 
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
     """x @ w with w possibly quantized. x: [..., in], w: [in, out]."""
+    if RECORD is not None:
+        w_res = resolve(w)
+        RECORD.append((tuple(w_res.shape), weight_fingerprint(w_res),
+                       x.reshape(-1, x.shape[-1]).abs().amax(dim=0)))
     if isinstance(w, QuantizedTensor):
         if _fused_kernel_applies(w):
             from repro_torch.kernels.fp8_matmul import ops as fp8_matmul
@@ -42,7 +66,8 @@ def matmul_t(x: torch.Tensor, w) -> torch.Tensor:
 
     For tensor/channel-granularity tables the scales move to the cheap side
     of the transpose (``x @ (q*s).T == (x*s[0]) @ q.T`` for channel scales,
-    ``s * (x @ q.T)`` for a scalar); block tables are dequantized."""
+    ``s * (x @ q.T)`` for a scalar) and a row-wise ``eq_scale`` divides the
+    output columns; block tables are dequantized."""
     if not isinstance(w, QuantizedTensor):
         return torch.matmul(x, w.T.to(x.dtype))
     if w.ndim == 2 and w.granularity in ("tensor", "channel"):
@@ -52,6 +77,8 @@ def matmul_t(x: torch.Tensor, w) -> torch.Tensor:
             out = torch.matmul(x32 * w.scale.float()[0], q.T)
         else:
             out = torch.matmul(x32, q.T) * w.scale.float()
+        if w.eq_scale is not None:          # per-row divisor of w
+            out = out / w.eq_scale.float()
         return out.to(x.dtype)
     return torch.matmul(x, w.dequantize().T.to(x.dtype))
 
@@ -64,7 +91,8 @@ def take(embedding, ids: torch.Tensor) -> torch.Tensor:
 
 
 def _take_quantized(w: QuantizedTensor, ids: torch.Tensor) -> torch.Tensor:
-    """Row-gathered dequantization, equal to ``w.dequantize()[ids]``."""
+    """Row-gathered dequantization, equal to ``w.dequantize()[ids]`` (the
+    same fp32 q * scale, the same ``eq_scale`` division)."""
     flat = ids.reshape(-1).long()
     q = w.data[flat].float()                                    # [N, O]
     if w.granularity == "block":
@@ -73,5 +101,7 @@ def _take_quantized(w: QuantizedTensor, ids: torch.Tensor) -> torch.Tensor:
         rows = q * s.repeat_interleave(bs, dim=1)[:, : q.shape[-1]]
     else:  # tensor: scalar; channel: [1, O] — both broadcast over rows
         rows = q * w.scale
+    if w.eq_scale is not None:
+        rows = unequalize(rows, w.eq_scale[flat])
     out = rows.to(getattr(torch, w.out_dtype))
     return out.reshape(*ids.shape, out.shape[-1])

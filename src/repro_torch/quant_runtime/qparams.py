@@ -5,7 +5,9 @@ Port of ``repro/quant_runtime/qparams.py``.  Model code calls
 the block-fp8 case goes to the fused dequant-matmul kernel and every other
 case is dequantized on the fly.  A stacked ``[L, I, O]`` leaf keeps its
 layers on the leading axis of ``data`` and ``scale``; ``layer(l)`` is the
-2-D view the per-layer model loop uses.
+2-D view the per-layer model loop uses.  An equalized tensor (SmoothQuant /
+AWQ) carries ``eq_scale``, its per-in-channel vector s: ``data`` stores
+``Q(W * s)`` and dequantization divides the rows by s.
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ class QuantizedTensor:
     granularity: str = "block"
     block_size: int = 128
     out_dtype: str = "bfloat16"  # dequantization target dtype
+    eq_scale: torch.Tensor | None = None  # per-in-channel equalization s:
+                                          # data stores Q(W*s), dequant /= s
 
     @property
     def shape(self):
@@ -37,15 +41,30 @@ class QuantizedTensor:
     def layer(self, i: int) -> "QuantizedTensor":
         """The ``i``-th matrix of a stacked leaf (views, no copy)."""
         return QuantizedTensor(self.data[i], self.scale[i], self.fmt, self.granularity,
-                               self.block_size, self.out_dtype)
+                               self.block_size, self.out_dtype,
+                               None if self.eq_scale is None else self.eq_scale[i])
 
     def dequantize(self) -> torch.Tensor:
         if self.data.ndim > 2:
             return torch.stack([self.layer(i).dequantize()
                                 for i in range(self.data.shape[0])])
-        return dequantize_stored(self.data, self.scale, self.granularity,
-                                 get_format(self.fmt), self.block_size,
-                                 getattr(torch, self.out_dtype))
+        out_dtype = getattr(torch, self.out_dtype)
+        if self.eq_scale is None:
+            return dequantize_stored(self.data, self.scale, self.granularity,
+                                     get_format(self.fmt), self.block_size, out_dtype)
+        return unequalize(dequantize_stored(self.data, self.scale, self.granularity,
+                                            get_format(self.fmt), self.block_size,
+                                            torch.float32),
+                          self.eq_scale).to(out_dtype)
 
     def nbytes(self) -> int:
-        return self.data.numel() * get_format(self.fmt).bits // 8 + self.scale.numel() * 4
+        n = self.data.numel() * get_format(self.fmt).bits // 8 + self.scale.numel() * 4
+        if self.eq_scale is not None:
+            n += self.eq_scale.numel() * 4
+        return n
+
+
+def unequalize(w: torch.Tensor, eq_scale: torch.Tensor) -> torch.Tensor:
+    """fp32 rows ``w [I, O]`` divided by the equalization vector ``[I]``: a
+    true division, as the reference's (eager) ``w / e[:, None]`` is."""
+    return w / eq_scale.float()[:, None]

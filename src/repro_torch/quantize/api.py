@@ -3,9 +3,19 @@
 Port of ``repro/quantize/api.py``.  One entry point owns the parameter-tree
 walk, the skip policy, the exact global delta-metric aggregation (partial
 sums combined across leaves) and the storage-vs-dequant emission; the
-per-leaf math is a :class:`Quantizer` from the method registry (``"daq"``,
-``"absmax"``).  Parameter trees are nested dicts of tensors and are walked
-in the reference's order (sorted keys).
+per-leaf math is a :class:`Quantizer` from the method registry:
+
+  ``"absmax"``        AbsMax baseline (search collapsed to alpha = 1)
+  ``"daq"``           paper Alg. 1 scale search, metric from ``qcfg.metric``
+  ``"daq-per-block"`` beyond-paper independent alpha per block/channel
+  ``"smoothquant"``   activation-aware equalization, fixed alpha = 0.5
+  ``"awq"``           activation-aware equalization, alpha grid by output MSE
+
+Calibration-based methods receive activation statistics through the
+``calibrate`` hook (pass ``model=``/``spec=`` or a precomputed ``calib=``
+list); data-free methods ignore those arguments.  Parameter trees are
+nested dicts of tensors and are walked in the reference's order (sorted
+keys).
 """
 from __future__ import annotations
 
@@ -20,7 +30,7 @@ from repro_torch.core.formats import get_format
 from repro_torch.core.granularity import dequantize_stored
 from repro_torch.core.policy import path_str, should_quantize, tree_leaves_with_path
 from repro_torch.core.search import SearchResult
-from repro_torch.quant_runtime.qparams import QuantizedTensor
+from repro_torch.quant_runtime.qparams import QuantizedTensor, unequalize
 from repro_torch.quantize.registry import get_method
 
 _METRICS = ("mse", "sign_rate", "cosine", "delta_l2")
@@ -36,13 +46,26 @@ class LeafContext:
 
 
 class Quantizer:
-    """Base class for registered quantization methods: ``prepare`` quantizes
-    one leaf; ``resolve_config`` may normalize the config before the walk."""
+    """Base class for registered quantization methods.  Subclasses implement
+    ``prepare`` (per leaf) and may override:
+
+      * ``resolve_config(qcfg)`` — normalize the config before the walk;
+      * ``calibrate(model, params, spec, n_batches=...)`` — produce
+        activation statistics for calibration-based methods;
+      * ``set_calibration(calib)`` — install (possibly precomputed) stats.
+    """
 
     name: str = ""
+    requires_calibration: bool = False
 
     def resolve_config(self, qcfg: QuantConfig) -> QuantConfig:
         return qcfg
+
+    def calibrate(self, model, params, spec, *, n_batches: int = 2) -> Any:
+        return None
+
+    def set_calibration(self, calib: Any) -> None:
+        pass
 
     def prepare(self, ctx: LeafContext) -> SearchResult:
         raise NotImplementedError
@@ -82,18 +105,28 @@ def _rebuild(tree: Any, leaves) -> Any:
 
 
 def _dequantized(res: SearchResult, qcfg: QuantConfig, dtype: torch.dtype) -> torch.Tensor:
+    """The dequantized weights ``Q_s(W)``; an equalized leaf's are
+    ``Q_s(W * e) / e`` in fp32, then cast, as the reference's ``w_dq`` is."""
     fmt = get_format(qcfg.fmt)
-    deq = lambda q, s: dequantize_stored(q, s, qcfg.granularity, fmt, qcfg.block_size,
-                                         dtype)
+
+    def deq(q, s, e):
+        if e is None:
+            return dequantize_stored(q, s, qcfg.granularity, fmt, qcfg.block_size, dtype)
+        return unequalize(dequantize_stored(q, s, qcfg.granularity, fmt, qcfg.block_size,
+                                            torch.float32), e).to(dtype)
+
+    eq = res.eq_scale
     if res.w_q.ndim == 2:
-        return deq(res.w_q, res.scale)
-    return torch.stack([deq(res.w_q[i], res.scale[i]) for i in range(res.w_q.shape[0])])
+        return deq(res.w_q, res.scale, eq)
+    return torch.stack([deq(res.w_q[i], res.scale[i], None if eq is None else eq[i])
+                        for i in range(res.w_q.shape[0])])
 
 
 def quantize(params_post: Any, params_base: Any = None,
              qcfg: QuantConfig | None = None, *, mode: str = "dequant",
-             out_dtype: str = "float32",
-             method: str | None = None) -> tuple[Any, QuantReport]:
+             out_dtype: str = "float32", method: str | None = None,
+             model=None, spec=None, calib: Any = None,
+             calib_batches: int = 2) -> tuple[Any, QuantReport]:
     """Quantize every eligible leaf of ``params_post``.
 
     Args:
@@ -106,6 +139,10 @@ def quantize(params_post: Any, params_base: Any = None,
       out_dtype: dtype of emitted weights (dequant) / dequantization target
         (storage).
       method: registry-name override of ``qcfg.method``.
+      model, spec: forwarded to the method's ``calibrate`` hook when the
+        method requires calibration and no ``calib`` was given.
+      calib: precomputed calibration statistics (skips ``calibrate``).
+      calib_batches: batches for the ``calibrate`` hook.
 
     Returns ``(quantized_tree, QuantReport)``; the work runs on the device
     the weights live on.
@@ -119,6 +156,15 @@ def quantize(params_post: Any, params_base: Any = None,
     qcfg = quantizer.resolve_config(qcfg)
     if params_base is None:
         params_base = params_post
+
+    if quantizer.requires_calibration:
+        if calib is None and (model is None) != (spec is None):
+            raise ValueError(
+                f"method {name!r} requires calibration: pass BOTH model= "
+                "and spec= (or a precomputed calib= list)")
+        if calib is None and model is not None:
+            calib = quantizer.calibrate(model, params_post, spec, n_batches=calib_batches)
+        quantizer.set_calibration(calib)
 
     report = QuantReport(method=name)
     post_leaves = list(tree_leaves_with_path(params_post))
@@ -150,12 +196,15 @@ def quantize(params_post: Any, params_base: Any = None,
         if mode == "storage":
             qt = QuantizedTensor(data=res.w_q, scale=res.scale, fmt=qcfg.fmt,
                                  granularity=qcfg.granularity,
-                                 block_size=qcfg.block_size, out_dtype=out_dtype)
+                                 block_size=qcfg.block_size, out_dtype=out_dtype,
+                                 eq_scale=res.eq_scale)
             report.quantized_bytes += qt.nbytes()
             out_leaves.append(qt)
         else:
             report.quantized_bytes += (w_post.numel() * get_format(qcfg.fmt).bits // 8
                                        + res.scale.numel() * 4)
+            if res.eq_scale is not None:
+                report.quantized_bytes += res.eq_scale.numel() * 4
             out_leaves.append(_dequantized(res, qcfg, getattr(torch, out_dtype)))
 
     def globals_of(agg):

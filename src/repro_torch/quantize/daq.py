@@ -1,4 +1,5 @@
-"""Registered data-free methods: DAQ (paper Alg. 1) and the AbsMax baseline.
+"""Registered data-free methods: DAQ (paper Alg. 1), its per-block variant
+and the AbsMax baseline.
 
 Port of ``repro/quantize/daq.py``.  The per-matrix search lives in
 :mod:`repro_torch.core.search`.  A stacked ``[L, I, O]`` leaf gets one alpha
@@ -6,7 +7,8 @@ per layer, exactly Alg. 1's per-layer loop; where the reference vmaps the
 search over the layer axis, the port loops over layers and writes each
 layer's codes into one preallocated ``[L, I, O]`` tensor, so no fp32
 temporary ever spans the whole stack (one fp32 copy of a stacked
-full-width ``w_gate`` would be 9 GB).
+full-width ``w_gate`` would be 9 GB).  Per-block alphas stack like scalar
+ones: ``[L, I/bs, 1, O/bs, 1]`` per block, ``[L, O]`` per channel.
 """
 from __future__ import annotations
 
@@ -31,7 +33,8 @@ def _stack_results(results: list[SearchResult], w_q: torch.Tensor) -> SearchResu
 @register("daq")
 class DAQQuantizer(Quantizer):
     """Delta-aware coarse-to-fine scale search; objective = ``qcfg.metric``.
-    Honors ``qcfg.use_fused_kernel`` (``search_scale`` dispatches)."""
+    Honors ``qcfg.per_block_alpha`` / ``qcfg.use_fused_kernel``
+    (``search_scale`` dispatches)."""
 
     def prepare(self, ctx: LeafContext) -> SearchResult:
         w_post, w_base, qcfg = ctx.w_post, ctx.w_base, ctx.qcfg
@@ -54,6 +57,15 @@ class DAQQuantizer(Quantizer):
                             w_q=unflat(res.w_q),
                             chosen={k: unflat(v) for k, v in res.chosen.items()},
                             default={k: unflat(v) for k, v in res.default.items()})
+
+
+@register("daq-per-block")
+class DAQPerBlockQuantizer(DAQQuantizer):
+    """Beyond-paper variant: independent alpha per block / channel (on the
+    plain path: the sweep kernel scores one alpha per tensor)."""
+
+    def resolve_config(self, qcfg: QuantConfig) -> QuantConfig:
+        return dataclasses.replace(qcfg, per_block_alpha=True, use_fused_kernel=False)
 
 
 @register("absmax")

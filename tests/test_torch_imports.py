@@ -32,6 +32,8 @@ def test_importing_every_port_module_loads_no_reference_code():
     assert "repro_torch.kernels.scale_search.kernel" in mods
     assert "repro_torch.engine.prefix" in mods
     assert "repro_torch.engine.spec" in mods
+    assert "repro_torch.data.synthetic" in mods
+    assert "repro_torch.quantize.equalize" in mods
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"

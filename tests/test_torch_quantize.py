@@ -159,6 +159,8 @@ def test_params_from_jax_converts_dtypes_and_quantized_nodes():
     assert isinstance(q, QuantizedTensor) and q.block_size == 32 and q.out_dtype == "float32"
     assert torch.equal(q.data.view(torch.uint8),
                        torch.from_numpy(w).to(torch.float8_e4m3fn).view(torch.uint8))
-    eq = dataclasses.replace(ref["q"], eq_scale=jnp.ones(64))
-    with pytest.raises(NotImplementedError):
-        params_from_jax(jax.device_get({"q": eq}))
+    assert q.eq_scale is None
+    e = rng.uniform(0.5, 1.0, 64).astype(np.float32)
+    eq = params_from_jax(jax.device_get({"q": dataclasses.replace(ref["q"],
+                                                                  eq_scale=jnp.asarray(e))}))
+    assert torch.equal(eq["q"].eq_scale, torch.from_numpy(e))

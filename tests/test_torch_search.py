@@ -111,8 +111,13 @@ def test_never_worse_than_absmax(metric, gran):
 
 
 def test_zero_delta_and_unported_options():
+    """A zero delta keeps the metrics finite; per-block alpha, once an
+    unported option, now searches (one alpha per block, each on the grid)."""
     wb = torch.from_numpy(_pair(7, shape=(64, 64))[1])
     res = search_scale(wb, wb, QuantConfig(metric="sign", granularity="channel"))
     assert np.isfinite(float(res.chosen["cosine"]))
-    with pytest.raises(NotImplementedError):
-        search_scale(wb, wb, dataclasses.replace(QuantConfig(), per_block_alpha=True))
+    res = search_scale(wb, wb, dataclasses.replace(QuantConfig(block_size=32),
+                                                   per_block_alpha=True))
+    assert res.alpha.shape == (2, 1, 2, 1) and res.eq_scale is None
+    assert bool(((res.alpha >= 0.8) & (res.alpha <= 1.25)).all())
+    assert np.isfinite(float(res.chosen["cosine"]))
