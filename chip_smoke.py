@@ -49,7 +49,11 @@ Phases:
      admission waits and blocks recycle mid-dispatch, with conservation
      checked after every admission and dispatch; the fp8 launch counts of
      both; one contiguous and one paged dispatch under the CUDA sync debug
-     mode;
+     mode; the paged engines record request metrics and a trace
+     (``repro_torch.telemetry``), the parity run's tokens, syncs,
+     dispatches, prefill calls and launches equal the contiguous run's
+     (telemetry off), and a drained paged dispatch (dispatch, transfer,
+     trace) synchronizes at the same one site with telemetry on and off;
   7c. prefix caching and chunked prefill (``prefix_phase``): 18 requests
      sharing a 128-token system prompt through the one-shot paged engine,
      a chunked one (``chunk_size=64``) and a chunked, prefix-cached one
@@ -57,7 +61,10 @@ Phases:
      dispatch, prefix hits, fewer prompt tokens prefilled warm than cold, a
      copy-on-write block, warm == cold token for token, the fp8 launch
      counts of the chunked serves, one chunked dispatch under the sync
-     debug mode, and the chunked-vs-one-shot agreement;
+     debug mode, and the chunked-vs-one-shot agreement; the chunked
+     engines record metrics and a trace, and the chunked engine's first 8
+     requests served with telemetry off and on agree in tokens, syncs,
+     dispatches, admissions and launches;
   7d. self-speculative decoding (``spec_phase``): phase 5's bf16 tree
      verifying, ``n_spec=4``: phase 6's requests without speculation (the
      baseline), with the DAQ draft (dynamic depth, then pinned) and with
@@ -69,6 +76,8 @@ Phases:
      and one composed dispatch under the sync debug mode; it prints the
      acceptance rates, each serve's tok/s, the agreement with the
      baseline, and how a verify row's bits differ from a decode step's;
+     the speculative engines record metrics and a trace, and (ii) served
+     again with telemetry off gives the same tokens, syncs and launches;
   7e. the rest of the quantizer (``methods_phase``, run after phase 8's
      serve breakdowns, when phase 5's tree is freed): phase 4's weights
      (base remade from its seed) quantized with ``daq-per-block`` (block
@@ -81,10 +90,22 @@ Phases:
      quantize seconds, peak GB and tok/s of each; then the reduced GLM-4-9B
      quantized by the three on the card and on the CPU (alphas, codes and
      ``eq_scale`` equal; AWQ's exponents equal where decided);
+  7f. the host-loop baseline (``host_loop_phase``, before phase 5's tree is
+     freed): ``serve_host_loop`` and the contiguous engine on phase 6's
+     requests, 16 tokens each: tok/s, host syncs per token, launches per
+     route (asserted), and how many tokens agree;
+  7g. the serve CLI (``cli_phase``, after phase 7e): ``python -m
+     repro_torch.launch.serve``'s ``main`` at full width, ``--daq --paged
+     --prefix-cache`` and ``--paged --spec-draft daq``, 8 requests of 128
+     (+1) prompt tokens and 16 generated, with ``--metrics-out`` and
+     ``--trace-out``: the snapshot's schema and completions, the trace's
+     schema and tracks, no kernel launched (channel trees), quantize
+     seconds, peak GB, tok/s and TTFT / TPOT percentiles;
   8. break one decode step, one prefill and one quantize (GLM-4-9B cut to
      4 layers at full width) down: host time, device busy time, kernel
      launches, the decode route's device time and the kernels that take
-     the device time (the quantizer's always listed); one paged decode
+     the device time (the quantizer's always listed; a decode window is
+     ``BREAKDOWN_STEPS`` steps); one paged decode
      step beside a contiguous one at the paged phase's state; one chunked
      dispatch beside a plain paged one at one state; and one speculative
      round, its draft steps and its verify at phase 7d's state.
@@ -128,6 +149,11 @@ N_SPEC = 4
 # the methods phase's calibration language: 4,096 tokens (its [V, V] float32
 # bigram table is 67 MB; at GLM-4-9B's vocabulary it would be 91.9 GB)
 CALIB_VOCAB = 4096
+# the host-loop and CLI phases: 16 generated tokens a request
+HOST_LOOP_GEN = 16
+# decode steps a profiled breakdown window holds (phases 7e, 8): 4 since
+# phases 7f and 7g joined the script (8 before), to keep it near 780 s
+BREAKDOWN_STEPS = 4
 
 
 def log(*a):
@@ -1089,15 +1115,100 @@ def fp8_serve_launches(stats: dict, n_layers: int) -> dict:
 
 def counted_serve(torch, engine, requests):
     """``engine.serve`` with every kernel count zeroed just before and read
-    just after: (outputs, stats, launches, seconds)."""
+    just after: (outputs, stats, launches, seconds).  An engine with
+    telemetry on (``telemetry_on``) gets a fresh registry and tracer for the
+    serve, checked after it (``check_telemetry``)."""
     from repro_torch.kernels._lib import KERNELS
+    if engine.metrics is not None:
+        telemetry_on(engine)
     for k in KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
     outputs, stats = engine.serve(requests, gen_tokens=GEN, return_stats=True)
     if engine.model.device.type == "cuda":
         torch.cuda.synchronize()
-    return outputs, stats, {k.name: k.launches for k in KERNELS}, time.perf_counter() - t0
+    secs = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    if engine.metrics is not None:
+        check_telemetry(f"serve of {len(requests)} requests", engine, len(requests))
+    return outputs, stats, launches, secs
+
+
+def telemetry_on(engine):
+    """Attach a metrics registry and a tracer to ``engine``; ``counted_serve``
+    gives it a fresh pair for each serve and checks what they recorded."""
+    from repro_torch.telemetry import MetricsRegistry, Tracer
+    engine.metrics, engine.tracer = MetricsRegistry(), Tracer()
+    return engine
+
+
+def trace_tracks(doc: dict) -> dict:
+    """Track name -> span and instant events of a Chrome trace, after its
+    schema checks: the two top-level keys, metadata for every track, ``ts``
+    and ``dur`` >= 0, and timestamps that never go back within a track."""
+    if set(doc) != {"traceEvents", "displayTimeUnit"} or doc["displayTimeUnit"] != "ms":
+        raise AssertionError(f"trace: top-level keys {sorted(doc)}")
+    names, per_track = {}, {}
+    for ev in doc["traceEvents"]:
+        if ev["ph"] == "M":
+            if ev["name"] == "thread_name":
+                names[ev["tid"]] = ev["args"]["name"]
+            continue
+        if ev["ts"] < 0 or ev.get("dur", 0) < 0:
+            raise AssertionError(f"trace: negative time in {ev}")
+        if ev["ph"] in ("X", "i"):
+            per_track.setdefault(ev["tid"], []).append(ev["ts"])
+    for tid, ts in per_track.items():
+        if tid not in names:
+            raise AssertionError(f"trace: track {tid} has no thread_name")
+        if ts != sorted(ts):
+            raise AssertionError(f"trace: track {names[tid]}'s timestamps go back")
+    return {names[tid]: len(ts) for tid, ts in per_track.items()}
+
+
+def telemetry_summary(snap: dict) -> str:
+    """TTFT, TPOT and queue-wait p50 / p95 of a metrics snapshot."""
+    hs = snap["histograms"]
+    return ", ".join(f"{h.split('.')[1][:-2]} p50 {hs[h]['p50'] * 1e3:.2f} ms p95 "
+                     f"{hs[h]['p95'] * 1e3:.2f} ms"
+                     for h in ("request.ttft_s", "request.tpot_s", "request.queue_wait_s")
+                     if hs.get(h, {}).get("count"))
+
+
+def check_telemetry(name: str, engine, n_requests: int) -> None:
+    """What ``engine``'s registry and tracer recorded over one serve of
+    ``n_requests``: the snapshot's schema and completions, and a
+    schema-valid trace (``trace_tracks``) holding the ``admission`` track,
+    ``dispatch`` or ``spec``, and ``prefill-chunk`` on a chunked engine."""
+    snap = engine.metrics.snapshot()
+    if snap["schema"] != "repro.telemetry.metrics/v1" \
+            or snap["counters"].get("requests.completed") != n_requests:
+        raise AssertionError(f"{name}: metrics snapshot {snap['schema']}, "
+                             f"{snap['counters'].get('requests.completed')} completed")
+    tracks = trace_tracks(engine.tracer.to_dict())
+    want = {"admission", "spec" if engine.cfg.n_spec else "dispatch"}
+    if engine.cfg.chunk_size:
+        want.add("prefill-chunk")
+    if not want <= set(tracks):
+        raise AssertionError(f"{name}: trace tracks {tracks}, expected {sorted(want)}")
+    log(f"{name}: telemetry: {n_requests} requests completed; {telemetry_summary(snap)}; "
+        f"trace events per track {json.dumps(tracks)}")
+
+
+def telemetry_twin(name: str, on: tuple, off: tuple) -> None:
+    """Telemetry adds nothing to a serve: ``on`` and ``off`` (outputs,
+    stats, launches, seconds of ``counted_serve``) of one workload give the
+    same tokens, host syncs, dispatches, prefill calls and launches per
+    route."""
+    (o1, s1, l1, t1), (o0, s0, l0, t0) = on, off
+    keys = ("host_syncs", "dispatches", "prefill_calls")
+    diff = {k: (s1[k], s0[k]) for k in keys if s1[k] != s0[k]}
+    if o1 != o0 or diff or l1 != l0:
+        raise AssertionError(f"{name}: telemetry on vs off: tokens equal {o1 == o0}, stats "
+                             f"(on, off) {diff}, launches {l1} vs {l0}")
+    log(f"{name}: telemetry on == off: tokens, {', '.join(keys)} "
+        f"({', '.join(str(s1[k]) for k in keys)}) and launches {json.dumps(l1)}; "
+        f"{t1:.2f} s on, {t0:.2f} s off")
 
 
 def admitted(torch, engine, requests):
@@ -1117,12 +1228,14 @@ def admitted(torch, engine, requests):
     return cache, state, gen
 
 
-def dispatch_sync_sites(torch, engine, requests) -> list[str]:
+def dispatch_sync_sites(torch, engine, requests, drain: bool = False) -> list[str]:
     """Every synchronizing CUDA operation in one K-step dispatch of
     ``engine`` after its first admission, as
     ``torch.cuda.set_sync_debug_mode("warn")`` reports them: the innermost
     frame of ``repro_torch`` that issued it (``file:line (source)``) and
-    the frame the warning names."""
+    the frame the warning names.  ``drain`` runs the serve loop's whole
+    dispatch (``Engine._run_dispatch``: the dispatch, its one transfer and
+    the telemetry read from it) instead of the dispatch alone."""
     import traceback
     import warnings
     cache, state, gen = admitted(torch, engine, requests)
@@ -1143,7 +1256,12 @@ def dispatch_sync_sites(torch, engine, requests) -> list[str]:
         warnings.showwarning = record
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            engine._dispatch(engine.params, state, cache, gen)
+            if drain:
+                engine._run_dispatch(engine._dispatch, state, cache, gen, None,
+                                     {"decode_s": 0.0, "host_syncs": 0, "dispatches": 0,
+                                      "decode_steps": 0})
+            else:
+                engine._dispatch(engine.params, state, cache, gen)
         finally:
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
@@ -1215,13 +1333,15 @@ def paged_phase(torch, args, model, qparams) -> dict:
         f"slots={SLOTS}, k_steps={K_STEPS}, cache_len={PAGED_CACHE_LEN}, blocks of {BLOCK}")
     kw = dict(slots=SLOTS, cache_len=PAGED_CACHE_LEN, k_steps=K_STEPS)
     engines = {"contiguous": Engine(model, qparams, **kw),
-               "parity": Engine(model, qparams, paged=True, block_size=BLOCK, **kw),
-               "pressure": Engine(model, qparams, paged=True, block_size=BLOCK,
-                                  num_blocks=PRESSURE_BLOCKS, check_invariants=True, **kw)}
+               "parity": telemetry_on(Engine(model, qparams, paged=True, block_size=BLOCK,
+                                             **kw)),
+               "pressure": telemetry_on(Engine(model, qparams, paged=True, block_size=BLOCK,
+                                               num_blocks=PRESSURE_BLOCKS,
+                                               check_invariants=True, **kw))}
     runs = {}
     for name, engine in engines.items():
         outputs, stats, launches, secs = counted_serve(torch, engine, requests)
-        runs[name] = (outputs, stats)
+        runs[name] = (outputs, stats, launches, secs)
         ctr = stats["counters"]
         pool = f", pool {engine._num_blocks} blocks" if engine.cfg.paged else ""
         log(f"paged phase, {name}{pool}: {secs:.2f} s; {stats['prefill_calls']} prefill calls, "
@@ -1243,6 +1363,9 @@ def paged_phase(torch, args, model, qparams) -> dict:
                 raise AssertionError(f"paged phase, {name}: blocks popped "
                                      f"{ctr['blocks_popped']} != released "
                                      f"{ctr['blocks_released']} at the end")
+    # the parity run (telemetry on) serves the contiguous run's workload
+    # (telemetry off) with the same admissions: the same tokens and counts
+    telemetry_twin("paged phase, parity vs contiguous", runs["parity"], runs["contiguous"])
     contig, parity, pressure = (runs[k][0] for k in ("contiguous", "parity", "pressure"))
     same = sum(a == b for x, y in zip(pressure, parity) for a, b in zip(x, y))
     first = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b), None)
@@ -1267,9 +1390,21 @@ def paged_phase(torch, args, model, qparams) -> dict:
         f"{sites['contiguous'] or 'none'}, paged {sites['parity'] or 'none'}")
     if added:
         raise AssertionError(f"paged phase: the paged dispatch synchronizes at {added}")
+    # the serve loop's whole dispatch, its transfer and the telemetry read
+    # from it: the tracer and registry add no synchronizing operation
+    paged = engines["parity"]
+    drained = {}
+    for name, tel in (("off", (None, None)), ("on", (paged.metrics, paged.tracer))):
+        paged.metrics, paged.tracer = tel
+        drained[name] = dispatch_sync_sites(torch, paged, requests, drain=True)
+    log(f"paged phase: synchronizing operations in one drained paged dispatch, telemetry off "
+        f"{drained['off']}, on {drained['on']}")
+    if drained["on"] != drained["off"] or len(drained["on"]) != 1:
+        raise AssertionError(f"paged phase: a drained dispatch synchronizes at "
+                             f"{drained['on']} with telemetry, {drained['off']} without")
     for name in ("contiguous", "parity"):
         dispatch_under_error_mode(torch, engines[name], requests)
-    log('paged phase: one contiguous and one paged dispatch ran under '
+    log('paged phase: one contiguous and one paged dispatch (tracer attached) ran under '
         'set_sync_debug_mode("error")')
     return {"engines": engines, "requests": requests}
 
@@ -1360,8 +1495,12 @@ def prefix_phase(torch, args, model, qparams) -> dict:
     (``fp8_chunked_launches``; ``SLOTS * CHUNK >= TC_MIN_ROWS``) and of the
     one-shot serve; then one more warm serve of the first 8 requests whose
     first chunked dispatch runs under ``set_sync_debug_mode("error")``.
-    Prints the chunked-vs-one-shot agreement (PERF.md, decision b: not
-    asserted)."""
+    The chunked and prefix engines record metrics and a trace
+    (``check_telemetry`` after each serve); the chunked engine serves the
+    first 8 requests with telemetry off and on (its first chunked dispatch
+    under the sync debug mode), the same tokens, syncs, dispatches,
+    admissions and launches (``telemetry_twin``).  Prints the
+    chunked-vs-one-shot agreement (PERF.md, decision b: not asserted)."""
     from repro_torch.engine import Engine
     from repro_torch.kernels.fp8_matmul.kernel import TC_MIN_ROWS
     cfg = model.cfg
@@ -1375,9 +1514,10 @@ def prefix_phase(torch, args, model, qparams) -> dict:
     kw = dict(slots=SLOTS, cache_len=PAGED_CACHE_LEN, k_steps=K_STEPS, paged=True,
               block_size=BLOCK)
     engines = {"one-shot": Engine(model, qparams, **kw),
-               "chunked": Engine(model, qparams, chunk_size=CHUNK, check_invariants=True, **kw),
-               "prefix": Engine(model, qparams, chunk_size=CHUNK, prefix_cache=True,
-                                check_invariants=True, **kw)}
+               "chunked": telemetry_on(Engine(model, qparams, chunk_size=CHUNK,
+                                              check_invariants=True, **kw)),
+               "prefix": telemetry_on(Engine(model, qparams, chunk_size=CHUNK,
+                                             prefix_cache=True, check_invariants=True, **kw))}
     runs = {}
     for name, key in (("one-shot", "one-shot"), ("chunked", "chunked"), ("prefix", "prefix"),
                       ("prefix-warm", "prefix")):
@@ -1427,8 +1567,19 @@ def prefix_phase(torch, args, model, qparams) -> dict:
     engines["prefix"].serve(requests[:SLOTS], gen_tokens=GEN)
     if not ran:
         raise AssertionError("prefix phase: no chunked dispatch ran under the sync debug mode")
-    log('prefix phase: one chunked, prefix-cached dispatch ran under '
+    log('prefix phase: one chunked, prefix-cached dispatch (tracer attached) ran under '
         'set_sync_debug_mode("error")')
+    # the chunked engine starts every serve from an empty cache: its first 8
+    # requests served with telemetry off, then on (the first chunked
+    # dispatch of that serve under the sync debug mode) are one workload
+    chunked = engines["chunked"]
+    chunked.metrics = chunked.tracer = None
+    off = counted_serve(torch, chunked, requests[:SLOTS])
+    ran = first_chunked_dispatch_under_error_mode(torch, telemetry_on(chunked))
+    on = counted_serve(torch, chunked, requests[:SLOTS])
+    if not ran:
+        raise AssertionError("prefix phase: no chunked dispatch ran under the sync debug mode")
+    telemetry_twin("prefix phase, chunked, first 8 requests", on, off)
     return {"requests": requests}
 
 
@@ -1515,7 +1666,10 @@ def spec_phase(torch, args, model, post, qparams, prompts) -> dict:
     (iii) and (iv) equal token for token (the verifier alone decides a
     token's value, whatever the draft and the depth), a copy-on-write in
     (v), warm == cold; then one speculative dispatch and one composed
-    dispatch under ``set_sync_debug_mode("error")``.  Prints each serve's
+    dispatch under ``set_sync_debug_mode("error")``.  The speculative
+    engines record metrics and a trace (``check_telemetry`` after each
+    serve); (ii) is served again with telemetry off: the same tokens,
+    syncs, dispatches, admissions and launches (``telemetry_twin``).  Prints each serve's
     time, tok/s, tokens per round and acceptance rate, each speculative
     serve's agreement with the baseline and ``verify_decode_bits`` (PERF.md,
     decision b: on the card the verify's rows are not the decode steps'
@@ -1572,33 +1726,39 @@ def spec_phase(torch, args, model, post, qparams, prompts) -> dict:
             if [o[0] for o in outputs] != [o[0] for o in base]:
                 raise AssertionError(f"spec phase, {name}: first tokens differ from the "
                                      f"baseline's")
-        return outputs, stats
+        return outputs, stats, launches, secs
 
     plain = Engine(model, post, **kw)
-    base, _ = check("(i) bf16, no speculation", plain, requests)
+    base = check("(i) bf16, no speculation", plain, requests)[0]
     log(f"spec phase: {verify_decode_bits(torch, plain, requests, base)}")
-    daq = Engine(model, post, draft_params=qparams, **spec_kw)
-    spec_outs = [check(name, engine, requests, base)[0] for name, engine in (
+    daq = telemetry_on(Engine(model, post, draft_params=qparams, **spec_kw))
+    runs = [check(name, telemetry_on(engine), requests, base) for name, engine in (
         ("(ii) DAQ draft", daq),
         ("(iii) DAQ draft, depth pinned",
          Engine(model, post, draft_params=qparams, spec_dynamic=False, **spec_kw)),
         ("(iv) AbsMax draft", Engine(model, post, draft_params=absmax, **spec_kw)))]
-    if any(o != spec_outs[0] for o in spec_outs):
+    if any(r[0] != runs[0][0] for r in runs):
         raise AssertionError("spec phase: the speculative serves' tokens depend on the draft")
     log("spec phase: (ii), (iii) and (iv) equal token for token")
-    del plain, absmax
+    # (ii)'s engine starts every serve from an empty cache: served again
+    # with telemetry off, it must give (ii)'s tokens, syncs and launches
+    daq.metrics = daq.tracer = None
+    telemetry_twin("spec phase, (ii)", runs[0],
+                   check("(ii) DAQ draft, telemetry off", daq, requests, base))
+    del plain, absmax, runs
     torch.cuda.empty_cache()
-    spec_dispatch_under_error_mode(torch, daq, requests)
-    log('spec phase: one speculative dispatch ran under set_sync_debug_mode("error")')
+    spec_dispatch_under_error_mode(torch, telemetry_on(daq), requests)
+    log('spec phase: one speculative dispatch (tracer attached) ran under '
+        'set_sync_debug_mode("error")')
 
     preqs = prefix_requests(torch, args, cfg.vocab_size, model.device)
-    composed = Engine(model, post, draft_params=qparams, n_spec=N_SPEC, chunk_size=CHUNK,
-                      prefix_cache=True, check_invariants=True,
-                      **{**kw, "cache_len": PAGED_CACHE_LEN})
+    composed = telemetry_on(Engine(model, post, draft_params=qparams, n_spec=N_SPEC,
+                                   chunk_size=CHUNK, prefix_cache=True, check_invariants=True,
+                                   **{**kw, "cache_len": PAGED_CACHE_LEN}))
     log(f"spec phase, (v): {len(preqs)} requests of phase 7c, cache_len {PAGED_CACHE_LEN}, "
         f"chunk_size {CHUNK}, prefix cache")
-    cold, cs = check("(v) composed, cold", composed, preqs)
-    warm, ws = check("(v) composed, warm", composed, preqs)
+    cold, cs = check("(v) composed, cold", composed, preqs)[:2]
+    warm, ws = check("(v) composed, warm", composed, preqs)[:2]
     log(f"spec phase: (v) warm vs cold: {agreement(warm, cold)}; prompt tokens prefilled "
         f"{cs['prefill_tokens']} cold, {ws['prefill_tokens']} warm")
     if cs["counters"]["cow_copies"] < 1 or ws["counters"]["cow_copies"] < 1:
@@ -1610,11 +1770,159 @@ def spec_phase(torch, args, model, post, qparams, prompts) -> dict:
     composed.serve(preqs[:SLOTS], gen_tokens=GEN)
     if not ran:
         raise AssertionError("spec phase: no composed dispatch ran under the sync debug mode")
-    log('spec phase: one composed (chunked, prefix-cached) speculative dispatch ran under '
-        'set_sync_debug_mode("error")')
+    log('spec phase: one composed (chunked, prefix-cached) speculative dispatch (tracer '
+        'attached) ran under set_sync_debug_mode("error")')
     del composed
     torch.cuda.empty_cache()
     return {"engine": daq, "requests": requests}
+
+
+# ---------------------------------------------------------------------------
+# Phase 7f: the host-loop baseline beside the engine
+# ---------------------------------------------------------------------------
+
+def host_loop_phase(torch, model, qparams, prompts, daq_outputs) -> None:
+    """Phase 7f: phase 6's 8 requests (128 prompt tokens), HOST_LOOP_GEN
+    greedy tokens each, through ``serve_host_loop`` (a batch-1 prefill per
+    request, one host sync per slot-token) and through the contiguous
+    ``Engine`` (``slots=8``, ``k_steps=8``), phase 5's DAQ tree at full
+    width: each run's time, tok/s, host syncs per token and launches per
+    route.  Asserts rows of HOST_LOOP_GEN tokens in range and the fp8
+    routes' launches (``fp8_serve_launches``: the host loop's 128-row
+    prefills on the wgmma route, its decode rows and LM heads on the decode
+    route); prints the agreement of the two runs and with phase 6's first
+    tokens (a reading: on the card a batch-1 prefill's bits differ from a
+    grouped one's, ROADMAP Queue C 15)."""
+    from repro_torch.engine import Engine, serve_host_loop
+    from repro_torch.kernels._lib import KERNELS
+    cfg, requests, gen = model.cfg, list(prompts), HOST_LOOP_GEN
+    runs = {}
+    for name in ("host loop", "engine"):
+        for k in KERNELS:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if name == "host loop":
+            outputs, stats = serve_host_loop(model, qparams, requests, batch=SLOTS,
+                                             gen_tokens=gen, cache_len=PROMPT + gen,
+                                             return_stats=True)
+        else:
+            outputs, stats = Engine(model, qparams, slots=SLOTS, cache_len=PROMPT + gen,
+                                    k_steps=K_STEPS).serve(requests, gen_tokens=gen,
+                                                           return_stats=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k.name: k.launches for k in KERNELS}
+        runs[name] = outputs
+        n_tok = sum(len(o) for o in outputs)
+        log(f"host-loop phase, {name}: {len(outputs)} requests x {gen} tokens in {secs:.3f} s "
+            f"({n_tok / secs:.1f} tok/s end to end); {stats['host_syncs']} host syncs "
+            f"({stats['host_syncs'] / n_tok:.3f} per token), {stats['prefill_calls']} prefill "
+            f"calls, {stats['decode_steps']} decode steps, {stats['dispatches']} dispatches; "
+            f"launches {json.dumps(launches)}")
+        for out in outputs:
+            if len(out) != gen or not all(0 <= t < cfg.vocab_size for t in out):
+                raise AssertionError(f"host-loop phase, {name}: bad output row {out[:8]}... "
+                                     f"({len(out)} tokens)")
+        want = {**fp8_serve_launches(stats, cfg.n_layers), "scale_search": 0, "fp8_quant": 0}
+        if launches != want:
+            raise AssertionError(f"host-loop phase, {name}: launches {launches}, expected "
+                                 f"{want}")
+    log(f"host-loop phase: host loop vs engine: {agreement(runs['host loop'], runs['engine'])}")
+    log(f"host-loop phase: host loop vs phase 6's first {gen} tokens: "
+        f"{agreement(runs['host loop'], [o[:gen] for o in daq_outputs])}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 7g: the serve CLI at full width
+# ---------------------------------------------------------------------------
+
+def cli_phase(torch) -> None:
+    """Phase 7g: ``python -m repro_torch.launch.serve``'s ``main`` called in
+    this process at full width (GLM-4-9B, 40 layers, no ``--reduced``), 8
+    requests of 129 prompt tokens (the CLI's ``--prompt-len 128`` draws
+    ``prompt_len + 1``, as the reference's does), 16 generated, 8 slots:
+
+    * ``--daq --paged --prefix-cache``: a channel-granularity DAQ tree
+      served paged, chunked (32-token pieces) and prefix-cached;
+    * ``--paged --spec-draft daq --n-spec 4``: the bf16 weights verifying a
+      channel-granularity DAQ draft.
+
+    Both with ``--metrics-out`` and ``--trace-out`` into a temporary
+    directory.  For each: the snapshot's schema and ``requests.completed
+    == 8``; a schema-valid trace with the ``admission`` track, ``dispatch``
+    or ``spec`` and, for the chunked run, ``prefill-chunk``; no kernel
+    launched (channel trees take the dequantize path: ROADMAP Queue C 2,
+    B 9); quantize seconds (``repro_torch.quantize.quantize`` timed around
+    its call), peak GB, tok/s (the CLI's summary line) and TTFT / TPOT p50
+    and p95 (the snapshot)."""
+    import contextlib
+    import io
+    import tempfile
+    import repro_torch.quantize as Q
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.launch import serve as cli
+    traffic = ["--arch", "glm4-9b", "--requests", str(SLOTS), "--batch", str(SLOTS),
+               "--prompt-len", str(PROMPT), "--gen", str(HOST_LOOP_GEN)]
+    real_quantize, quant_s = Q.quantize, []
+
+    def timed_quantize(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_quantize(*a, **kw)
+        torch.cuda.synchronize()
+        quant_s.append(time.perf_counter() - t0)
+        return out
+
+    Q.quantize = timed_quantize
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            for name, extra in (("daq", ["--daq", "--paged", "--prefix-cache"]),
+                                ("spec", ["--paged", "--spec-draft", "daq", "--n-spec",
+                                          str(N_SPEC)])):
+                metrics, trace = f"{tmp}/{name}-metrics.json", f"{tmp}/{name}-trace.json"
+                argv = traffic + extra + ["--metrics-out", metrics, "--trace-out", trace]
+                log(f"cli phase, {name}: python -m repro_torch.launch.serve {' '.join(argv)}")
+                quant_s.clear()
+                for k in KERNELS:
+                    k.launches = 0
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                out = io.StringIO()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(out):
+                    outputs, stats = cli.main(argv)
+                secs = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated() / 1e9
+                text = out.getvalue()
+                log(text.rstrip())
+                launches = {k.name: k.launches for k in KERNELS}
+                snap = json.loads(Path(metrics).read_text())
+                if snap["schema"] != "repro.telemetry.metrics/v1" \
+                        or snap["counters"].get("requests.completed") != SLOTS:
+                    raise AssertionError(f"cli phase, {name}: snapshot {snap['schema']}, "
+                                         f"{snap['counters'].get('requests.completed')} "
+                                         f"completed")
+                tracks = trace_tracks(json.loads(Path(trace).read_text()))
+                want = {"admission", "spec" if name == "spec" else "dispatch"}
+                if name == "daq":
+                    want.add("prefill-chunk")
+                if not want <= set(tracks):
+                    raise AssertionError(f"cli phase, {name}: trace tracks {tracks}, "
+                                         f"expected {sorted(want)}")
+                if any(launches.values()):
+                    raise AssertionError(f"cli phase, {name}: a channel tree launched "
+                                         f"{launches}")
+                for o in outputs:
+                    if len(o) != HOST_LOOP_GEN:
+                        raise AssertionError(f"cli phase, {name}: a row of {len(o)} tokens")
+                served = re.search(r"\(([\d.]+) tok/s", text)
+                log(f"cli phase, {name}: quantize {' + '.join(f'{q:.2f}' for q in quant_s)} s, "
+                    f"peak {peak:.2f} GB, {served.group(1)} tok/s (the CLI's line), "
+                    f"{telemetry_summary(snap)}; the call {secs:.1f} s; trace events per "
+                    f"track {json.dumps(tracks)}; launches {json.dumps(launches)}")
+    finally:
+        Q.quantize = real_quantize
 
 
 # ---------------------------------------------------------------------------
@@ -2027,7 +2335,7 @@ def device_breakdown(torch, label: str, run, per: int, unit: str, top: int = 8,
             log(f"  {t / per:8.3f} ms/{unit}  {n / per:6.0f} launches/{unit}  {name[:90]}")
 
 
-def breakdowns(torch, model, qparams, prompts, steps: int = 8, tree: str = "",
+def breakdowns(torch, model, qparams, prompts, steps: int = BREAKDOWN_STEPS, tree: str = "",
                prefill: bool = True) -> None:
     """Where a decode step and (with ``prefill``) a prefill of the fp8 model
     ``qparams`` go; ``tree`` names it in the lines (phase 5's by default)."""
@@ -2054,7 +2362,7 @@ def breakdowns(torch, model, qparams, prompts, steps: int = 8, tree: str = "",
                      prefill, 1, "prefill")
 
 
-def paged_breakdown(torch, phase: dict, steps: int = 8) -> None:
+def paged_breakdown(torch, phase: dict, steps: int = BREAKDOWN_STEPS) -> None:
     """One ``decode_step_paged`` at the parity run's state (its first
     admission: 8 slots, ``cache_len`` 560, 280 blocks of 16) beside one
     contiguous ``decode_step`` at the same state and ``cache_len``: host ms,
@@ -2258,6 +2566,9 @@ def main() -> int:
     spec = spec_phase(torch, args, model, post, qparams, prompts)
     log(f"spec phase passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    host_loop_phase(torch, model, qparams, prompts, daq_outputs)
+    log(f"host-loop phase passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     breakdowns(torch, model, qparams, prompts)
     paged_breakdown(torch, phase)
     chunk_breakdown(torch, model, qparams, phase["requests"], phase["engines"]["parity"])
@@ -2271,6 +2582,9 @@ def main() -> int:
     log(f"methods phase passed in {time.perf_counter() - t0:.1f} s")
     del post
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cli_phase(torch)
+    log(f"cli phase passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     quantize_breakdown(torch, args.seed)
     log(f"quantize breakdown took {time.perf_counter() - t0:.1f} s")

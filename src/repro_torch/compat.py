@@ -24,19 +24,40 @@ _BIT_VIEWS = {
     "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
     "float8_e5m2": (np.uint8, torch.float8_e5m2),
 }
+_TORCH_NAMES = {tdtype: name for name, (_, tdtype) in _BIT_VIEWS.items()}
 
 
 def tensor_from_numpy(a) -> torch.Tensor:
     """A CPU torch copy of a numpy array, bf16 / fp8 included."""
     a = np.array(a, order="C")          # a copy; a 0-d array stays 0-d
-    view = _BIT_VIEWS.get(a.dtype.name)
-    if view is None:
+    if a.dtype.name not in _BIT_VIEWS:
         return torch.from_numpy(a)
-    bits, tdtype = view
-    raw = torch.from_numpy(a.view(bits))
+    return tensor_from_bits(a, a.dtype.name)
+
+
+def tensor_from_bits(a, name: str) -> torch.Tensor:
+    """A CPU torch copy of ``a``'s bytes read as the extended dtype ``name``
+    (a key of ``_BIT_VIEWS``): ``a`` may be an ``ml_dtypes`` array or the
+    raw void array (``|V2``, ``|V1``) that ``np.load`` returns for one."""
+    bits, tdtype = _BIT_VIEWS[name]
+    raw = torch.from_numpy(np.array(a, order="C").view(bits))
     if bits is np.uint16:
         raw = raw.view(torch.int16)     # torch views 2-byte ints as bf16
     return raw.view(tdtype)
+
+
+def numpy_bits(t: torch.Tensor) -> tuple[np.ndarray, str]:
+    """(numpy array, dtype name) of a tensor, on the host: a bf16 / fp8
+    tensor becomes a raw void array of its bytes (``|V2``, ``|V1``) named by
+    the ``ml_dtypes`` name that reads it back (``bfloat16``,
+    ``float8_e4m3fn``, ``float8_e5m2``); any other dtype its own array."""
+    t = t.detach().cpu().contiguous()
+    name = _TORCH_NAMES.get(t.dtype)
+    if name is None:
+        arr = t.numpy()
+        return arr, str(arr.dtype)
+    bits = torch.int16 if t.element_size() == 2 else torch.uint8
+    return t.view(bits).numpy().view(f"V{t.element_size()}"), name
 
 
 def params_from_jax(tree: Any) -> Any:

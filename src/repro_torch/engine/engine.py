@@ -55,6 +55,21 @@ Every prefill the engine runs (one-shot or a chunk) uses one flash tile
 shape, ``(4 * block_size, blocks_for(cache_len) * block_size)``
 (``Engine._tiles``), so on the CPU a chunked prefill gives the one-shot
 prefill's bits and greedy tokens.
+
+**Telemetry** (``repro_torch.telemetry``): ``metrics=`` (a
+``MetricsRegistry``) records each request's lifecycle and the serve's
+counters and gauges, ``tracer=`` (a ``Tracer``) the admission, dispatch,
+``spec``, ``prefill-chunk`` and eviction tracks and the ``tokens`` /
+``blocks`` counter tracks — the reference's names, units and arguments.
+Both read only what the serve loop already holds on the host: the counter
+tracks come from the one transfer of each dispatch, and every time
+(``stats["prefill_s"]`` / ``decode_s``, lifecycle times, span ends) is a
+``time.perf_counter()`` read.  A span's end is read after the transfer
+that already ends its work (a dispatch's grid, a one-shot admission's
+first tokens), so on the card it covers the device time, not just the
+launches; a chunked admission has no such transfer unless the prefix
+index needs its new block ids, and its span is the host's issue time
+(its prefill runs in the following dispatches, whose spans hold it).
 """
 from __future__ import annotations
 
@@ -112,7 +127,7 @@ class Engine:
     """Continuous-batching serving engine over a built :class:`Model`."""
 
     def __init__(self, model, params, cfg: EngineConfig | None = None, *, draft_params=None,
-                 **kw):
+                 metrics=None, tracer=None, **kw):
         if cfg is None:
             cfg = EngineConfig(**kw)
         elif kw:
@@ -142,6 +157,10 @@ class Engine:
         self.model = model
         self.params = params
         self.draft_params = draft_params
+        # host-side telemetry, fed only from values the serve loop already
+        # holds on the host: enabling it adds no host sync
+        self.metrics = metrics      # MetricsRegistry | None
+        self.tracer = tracer        # Tracer | None
         self.cfg = cfg
         self._mb = P.blocks_for(cfg.cache_len, cfg.block_size)       # blocks per slot
         # one flash tile shape for every prefill: a chunk's rows then give
@@ -245,18 +264,84 @@ class Engine:
             return DepthController(self.cfg.n_spec)
         return DepthController(self.cfg.n_spec, lo=-1.0, hi=2.0)
 
+    # -- telemetry (repro_torch.telemetry) -------------------------------------
+
+    def _request_done(self, prompt_len, gen_len, t_enq, t_admit, t_first,
+                      prefix_hit_frac=None):
+        """Record one finished request's lifecycle histograms (no-op without
+        a registry; every input is a host float already in hand)."""
+        m = self.metrics
+        if m is None:
+            return
+        now = time.perf_counter()
+        m.counter("requests.completed").inc()
+        m.histogram("request.ttft_s", unit="s").observe(t_first - t_enq)
+        m.histogram("request.queue_wait_s", unit="s").observe(t_admit - t_enq)
+        m.histogram("request.tpot_s", unit="s").observe((now - t_first) / max(gen_len - 1, 1))
+        m.histogram("request.prompt_len", lo=1.0, hi=1e6, unit="tokens").observe(prompt_len)
+        m.histogram("request.gen_len", lo=1.0, hi=1e6, unit="tokens").observe(gen_len)
+        if prefix_hit_frac is not None:
+            m.histogram("request.prefix_hit_frac", lo=1e-3, hi=1.0).observe(prefix_hit_frac)
+
+    def _trace_dispatch(self, t0_us, ctr, depth=None, drafted=0, accepted=0):
+        """One dispatch's trace events: a span on the ``dispatch`` (or
+        ``spec``) track, ended after the dispatch's transfer, and samples of
+        the ``tokens`` and ``blocks`` counter tracks from the counters that
+        transfer brought home (``ctr``)."""
+        tr = self.tracer
+        if tr is None:
+            return
+        if depth is None:
+            tr.complete("dispatch", "decode", t0_us, {"k_steps": self.cfg.k_steps})
+        else:
+            tr.complete("spec", "rounds", t0_us,
+                        {"k_steps": self.cfg.k_steps, "depth": depth, "drafted": drafted,
+                         "accepted": accepted})
+        totals = counter_totals(ctr)
+        tr.counter("tokens", {"emitted": totals["tokens"]})
+        if self.cfg.paged:
+            live = self._ctr_live0 + totals["blocks_popped"] - totals["blocks_released"]
+            tr.counter("blocks", {"live": live, "cow": totals["cow_copies"]})
+
+    def _finalize_serve(self, stats, totals):
+        """End-of-serve telemetry: expose the counters (``totals``) as
+        ``stats["counters"]`` and fold them and the allocator and speculation
+        gauges into the registry."""
+        stats["counters"] = totals
+        m = self.metrics
+        if m is None:
+            return
+        for k, v in totals.items():
+            m.counter(f"device.{k}").inc(v)
+        if self.cfg.n_spec:
+            m.gauge("spec.depth").set(stats["spec_depth"])
+            acc = m.gauge("spec.acceptance_rate")   # None -> "n/a"
+            if totals["drafted"]:
+                acc.set(totals["accepted"] / totals["drafted"])
+        if self.cfg.paged:
+            live = self._ctr_live0 + totals["blocks_popped"] - totals["blocks_released"]
+            m.gauge("alloc.live_blocks").set(live)
+            m.gauge("alloc.free_blocks").set(self._num_blocks - live)
+        if self.cfg.chunk_size:
+            holds = len(self._hold_blocks)
+            m.gauge("alloc.index_holds").set(holds)
+            m.gauge("alloc.ledger_headroom").set(self._num_blocks - holds)
+            m.counter("prefix.evictions").inc(stats.get("prefix_evictions", 0))
+
     def _run_dispatch(self, dispatch, state, cache, gen, spec_ctl, stats):
         """One K-step dispatch and its one device-to-host transfer (token
         grid, emission mask, counters).  Returns (state, cache, tokens [B,
         W], emitted [B, W], counters) on the host, ``W = K * (n_spec + 1)``;
         with speculation it runs ``dispatch`` with the draft tree at the
         controller's depth and folds the dispatch's drafted / accepted
-        deltas into ``stats`` and the controller."""
-        cfg = self.cfg
+        deltas into ``stats`` and the controller.  The dispatch's trace span
+        ends after the transfer."""
+        cfg, tr = self.cfg, self.tracer
         B = cfg.slots
         W = cfg.k_steps * (cfg.n_spec + 1)
         ctr0 = state["ctr"]
         t0 = time.perf_counter()
+        t0_us = tr.now_us() if tr else 0.0
         if spec_ctl is None:
             state, cache, toks, emitted = dispatch(self.params, state, cache, gen)
         else:
@@ -272,13 +357,16 @@ class Engine:
         stats["dispatches"] += 1
         stats["decode_steps"] += cfg.k_steps
         ctr = dict(zip(COUNTER_KEYS, host[2 * B * W:-2]))
+        spec = {}
         if spec_ctl is not None:
             d_dr = int(ctr["drafted"]) - int(host[-2])
             d_ac = int(ctr["accepted"]) - int(host[-1])
             stats["draft_tokens"] += d_dr
             stats["draft_accepted"] += d_ac
             stats["spec_rounds"] += cfg.k_steps
+            spec = dict(depth=spec_ctl.depth, drafted=d_dr, accepted=d_ac)
             stats["spec_depth"] = spec_ctl.update(d_dr, d_ac)
+        self._trace_dispatch(t0_us, ctr, **spec)
         return (state, cache, host[:B * W].reshape(B, W),
                 host[B * W:2 * B * W].reshape(B, W).astype(bool), ctr)
 
@@ -437,6 +525,12 @@ class Engine:
         # from an earlier serve are the conservation's base
         state["ctr"] = init_counters(dev)
         self._ctr_live0 = len(self._hold_blocks)
+        tr = self.tracer
+        t_enq = time.perf_counter()
+        req_admit: dict[int, float] = {}
+        req_first: dict[int, float] = {}
+        req_pf: dict[int, float] = {}       # prefix-hit fraction per request
+        slot_t0us = [0.0] * B               # admission trace clock per slot
         gen = torch.Generator(device=dev).manual_seed(cfg.seed if seed is None else seed)
         index = self._index
         queue = deque(range(len(requests)))
@@ -457,6 +551,8 @@ class Engine:
             if ids:
                 drop_holds(ids)
                 stats["prefix_evictions"] += len(ids)
+                if tr:
+                    tr.instant("eviction", "evict", {"blocks": len(ids)})
             return len(ids)
 
         while queue or any(r >= 0 for r in slot_rid):
@@ -505,6 +601,7 @@ class Engine:
                     break
                 s = free.pop(0)
                 queue.popleft()
+                t0_us = tr.now_us() if tr else 0.0
                 ints = np.full(MB + pcap, -1, np.int32)
                 ints[:len(shared)] = shared
                 ints[MB:] = 0
@@ -524,6 +621,13 @@ class Engine:
                     stats["host_syncs"] += 1
                     self._hold_blocks.update(ids)
                     slot_pend[s] = (toks, len(matched), ids)
+                req_admit[rid] = time.perf_counter()
+                req_pf[rid] = pf_start / L
+                if tr:
+                    tr.complete("admission", f"req{rid}", t0_us,
+                                {"prompt_len": L, "prefix_hit": pf_start,
+                                 "shared_blocks": len(shared)})
+                    slot_t0us[s] = tr.now_us()
                 if cfg.check_invariants:
                     self._assert_invariants(cache, state)
             stats["prefill_s"] += time.perf_counter() - t0
@@ -543,7 +647,11 @@ class Engine:
                 if slot_rid[s] < 0 or slot_pf[s] <= 0:
                     continue
                 slot_pf[s] = max(0, slot_pf[s] - K * C)
-                if slot_pf[s] > 0 or slot_pend[s] is None:
+                if slot_pf[s] > 0:
+                    continue
+                if tr:
+                    tr.complete("prefill-chunk", f"req{slot_rid[s]}", slot_t0us[s])
+                if slot_pend[s] is None:
                     continue
                 # the slot's new full prompt blocks now hold their rows:
                 # publish them (a duplicate loses its hold and dies with
@@ -566,6 +674,8 @@ class Engine:
                 if r < 0:
                     continue
                 row = [int(t) for t in toks_h[s][em_h[s]]]
+                if row and r not in req_first:
+                    req_first[r] = time.perf_counter()
                 outputs[r].extend(row)
                 stats["tokens"] += len(row)
                 slot_rem[s] -= len(row)
@@ -575,10 +685,15 @@ class Engine:
                     slot_rid[s], slot_rsv[s] = -1, 0
                     index.unpin(slot_keys[s])
                     slot_keys[s] = []
+                    self._request_done(len(toks_np[r]), gen_tokens, t_enq, req_admit[r],
+                                       req_first.get(r, req_admit[r]),
+                                       prefix_hit_frac=req_pf.get(r))
 
-        stats["counters"] = counter_totals(
+        # read after the loop, so the releases after the last dispatch count
+        # too (the reference reads them at that dispatch: ROADMAP Queue C 9)
+        self._finalize_serve(stats, counter_totals(
             dict(zip(COUNTER_KEYS, torch.stack([state["ctr"][k] for k in COUNTER_KEYS])
-                     .cpu().tolist())))
+                     .cpu().tolist()))))
         stats["host_syncs"] += 1
         if cfg.prefix_cache:
             self._pcache, self._pstate = cache, state
@@ -613,6 +728,9 @@ class Engine:
             return (outs, stats) if return_stats else outs
         self._ctr_live0 = 0
         outputs: dict[int, list[int]] = {}
+        tr = self.tracer
+        t_enq = time.perf_counter()     # every request enqueues at serve()
+        req_admit: dict[int, float] = {}
         if cfg.paged:
             for r in requests:
                 need = self._blocks_needed(int(r.shape[0]), gen_tokens)
@@ -658,10 +776,15 @@ class Engine:
                 rids = [queue.popleft() for _ in take_slots]
             if rids:
                 t0 = time.perf_counter()
+                t0_us = tr.now_us() if tr else 0.0
                 cache, state, first = self._admit(
                     cache, state, take_slots, [requests[r] for r in rids],
                     gen_tokens, gen)
-                stats["prefill_s"] += time.perf_counter() - t0
+                ta = time.perf_counter()    # after the first tokens' transfer
+                stats["prefill_s"] += ta - t0
+                if tr:
+                    tr.complete("admission", f"admit x{len(rids)}", t0_us,
+                                {"requests": len(rids), "prefill_calls": 1})
                 stats["prefill_calls"] += 1
                 stats["host_syncs"] += 1
                 stats["tokens"] += len(rids)
@@ -669,7 +792,12 @@ class Engine:
                 for s, r, t in zip(take_slots, rids, first):
                     outputs[r] = [t]
                     slot_rid[s], slot_rem[s] = r, gen_tokens - 1
+                    # the first token comes from the prefill's logits, so the
+                    # admission time is the first-token time
+                    req_admit[r] = ta
                     if slot_rem[s] <= 0:      # gen_tokens == 1 finishes now
+                        self._request_done(int(requests[r].shape[0]), gen_tokens, t_enq,
+                                           ta, ta)
                         slot_rid[s] = -1
                         slot_rsv[s] = 0
                 if cfg.paged and cfg.check_invariants:
@@ -693,8 +821,12 @@ class Engine:
                 if slot_rem[s] <= 0:
                     slot_rid[s] = -1
                     slot_rsv[s] = 0     # the device freed its blocks mid-dispatch
+                    self._request_done(int(requests[r].shape[0]), gen_tokens, t_enq,
+                                       req_admit[r], req_admit[r])
 
-        if ctr_host is not None:
-            stats["counters"] = counter_totals(ctr_host)
+        # no dispatch ran (gen_tokens == 1): every token came from a prefill
+        # and the counters read zero, without a transfer of their own
+        self._finalize_serve(stats, counter_totals(ctr_host) if ctr_host is not None
+                             else dict.fromkeys(COUNTER_KEYS, 0))
         outs = [outputs[i] for i in sorted(outputs)]
         return (outs, stats) if return_stats else outs

@@ -177,3 +177,19 @@ def make_decode_dispatch(model, sp: SamplingParams, k_steps: int, *, paged: bool
         return st, cache, toks, emitted
 
     return dispatch
+
+
+def make_decode_step(model, sp: SamplingParams | None = None):
+    """One batch decode step with sampling: ``step(params, tokens, cache,
+    gen=None)`` -> (next tokens [B, 1] int32, logits [B, V], cache).  The
+    single-step form of the dispatch; the host-loop baseline
+    (``engine/legacy.py``) runs it once per token.  ``gen`` is the
+    ``torch.Generator`` a sampled step draws from (unused when greedy)."""
+    sp = sp or SamplingParams()
+
+    @torch.no_grad()
+    def step(params, tokens, cache, gen=None):
+        logits, cache = model.decode_step(params, tokens, cache)
+        return sample(logits, gen, sp)[:, None], logits, cache
+
+    return step

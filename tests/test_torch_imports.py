@@ -34,6 +34,10 @@ def test_importing_every_port_module_loads_no_reference_code():
     assert "repro_torch.engine.spec" in mods
     assert "repro_torch.data.synthetic" in mods
     assert "repro_torch.quantize.equalize" in mods
+    for m in ("repro_torch.telemetry.metrics", "repro_torch.telemetry.trace",
+              "repro_torch.engine.legacy", "repro_torch.checkpoint.store",
+              "repro_torch.launch.serve"):
+        assert m in mods, m
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
