@@ -101,6 +101,19 @@ Phases:
      ``--trace-out``: the snapshot's schema and completions, the trace's
      schema and tracks, no kernel launched (channel trees), quantize
      seconds, peak GB, tok/s and TTFT / TPOT percentiles;
+  7h. training (``train_phase``, after 7g): GLM-4-9B at full width cut to 8
+     layers, bf16 weights from a seed, SFT'd for 8 AdamW steps (fp32 master
+     and moments, remat ``full``, mixed batches of 4 x 512 tokens, one step
+     under the sync debug mode "error"), the SFT'd tree DAQ-quantized
+     against its base (the sweep and the quantizer launch) and served phase
+     6's requests; loss per step (falling), train tok/s, a step's host and
+     device time, idle share and launches, the optimizer's share, peak GB,
+     the real delta's sign rate and cosine, launch counts asserted; then a
+     small float32 model trained 3 steps on the card and on the CPU
+     (``train_agreement``);
+  7i. the paper's study (``study_phase``): ``pipeline/daq_study.py`` at its
+     own ``STUDY_CFG``, base and SFT trained on the card (600 + 350 steps),
+     Tables 2 and 4, post-SFT style above the base's;
   8. break one decode step, one prefill and one quantize (GLM-4-9B cut to
      4 layers at full width) down: host time, device busy time, kernel
      launches, the decode route's device time and the kernels that take
@@ -154,6 +167,13 @@ HOST_LOOP_GEN = 16
 # decode steps a profiled breakdown window holds (phases 7e, 8): 4 since
 # phases 7f and 7g joined the script (8 before), to keep it near 780 s
 BREAKDOWN_STEPS = 4
+# the train phase: GLM-4-9B at full width, 8 layers (its training state, 16
+# bytes a parameter, is 46 GB there and about 150 GB at 40 layers), 8 SFT
+# steps of 4 x 512 tokens; the card-vs-CPU check takes 3 steps
+TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_CHECK_STEPS = 8, 8, (4, 512), 3
+TRAIN_LR = 1e-4
+# the study phase's (base, SFT) steps: the reference's full budget
+STUDY_STEPS = (600, 350)
 
 
 def log(*a):
@@ -1926,6 +1946,252 @@ def cli_phase(torch) -> None:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7h: train -> quantize -> serve at full width; phase 7i: the study
+# ---------------------------------------------------------------------------
+
+def train_agreement(torch, seed: int) -> None:
+    """A 2-layer float32 GLM-shaped model (width 256) takes ``TRAIN_CHECK_STEPS``
+    AdamW steps on the card and on the CPU from one init on the same batches
+    (``train_batch`` draws on the host).  Its parameters are float32 but its
+    activations bf16 (``models/common.py::ACT_DTYPE``), so the two differ by
+    bf16 rounding of each product, as the CPU tests' port-vs-reference
+    steps do: each step's loss within 1e-3 relative, the whole tree's
+    update and each weight matrix's within 0.99 cosine of the CPU's
+    (biases and norm scales count in the whole only: AdamW normalizes
+    their small, noisy gradients into full-size steps)."""
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.core.policy import tree_leaves_with_path, tree_map
+    from repro_torch.data import LanguageSpec, train_batch
+    from repro_torch.launch.steps import init_train_state, make_train_step
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_arch("glm4-9b"), n_layers=2, d_model=256, n_heads=2,
+                              n_kv_heads=1, head_dim=128, d_ff=512, vocab_size=1024,
+                              dtype="float32")
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=TRAIN_CHECK_STEPS)
+    spec = LanguageSpec(vocab=cfg.vocab_size)
+    losses, states = {}, {}
+    init = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(seed + 3))
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev)
+        state = init_train_state(model, tc, None,
+                                 tree_map(lambda t: t.to(model.device, copy=True), init))
+        step = make_train_step(model, tc)
+        losses[dev] = []
+        for t in range(TRAIN_CHECK_STEPS):
+            state, m = step(state, train_batch(spec, 0, t, 4, 64, device=model.device))
+            losses[dev].append(float(m["loss"]))
+        states[dev] = tree_map(lambda t: t.cpu(), state["params"])
+    worst_loss = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    cosine = lambda a, b: float(a @ b / a.norm() / b.norm())
+    cosines, whole = {}, ([], [])
+    for (path, c), (_, g), (_, p0) in zip(tree_leaves_with_path(states["cpu"]),
+                                          tree_leaves_with_path(states["cuda"]),
+                                          tree_leaves_with_path(init)):
+        dc, dg = (c - p0).double().flatten(), (g - p0).double().flatten()
+        whole[0].append(dc)
+        whole[1].append(dg)
+        if path[-1].startswith("w") or path[-1] == "embed":
+            cosines["/".join(path)] = cosine(dc, dg)
+    worst = min(cosines, key=cosines.get)
+    total = cosine(torch.cat(whole[0]), torch.cat(whole[1]))
+    log(f"train agreement (2 layers, width 256, float32 parameters, {TRAIN_CHECK_STEPS} "
+        f"steps, card vs CPU): losses {[round(x, 6) for x in losses['cuda']]} vs "
+        f"{[round(x, 6) for x in losses['cpu']]} (worst {worst_loss:.3g} relative, "
+        f"tolerance 1e-3); update cosine {total:.6f} over the tree (tolerance 0.99), "
+        f"least of a weight matrix {cosines[worst]:.6f} ({worst}; tolerance 0.99)")
+    if not worst_loss <= 1e-3 or not total >= 0.99 or not cosines[worst] >= 0.99:
+        raise AssertionError("train agreement: the card's and the CPU's training differ")
+
+
+def train_phase(torch, seed: int, prompts) -> None:
+    """Phase 7h: GLM-4-9B at full width cut to ``TRAIN_LAYERS`` layers (its
+    training state at 40 layers, about 150 GB, does not fit one card):
+    bf16 weights from a seeded generator (the base), SFT'd for
+    ``TRAIN_STEPS`` AdamW steps (fp32 master and moments, remat ``full``)
+    on ``"mixed"`` batches of 4 x 512 tokens of a 4,096-token language
+    (``train_batch``); then the optimizer state is freed, the SFT'd tree is
+    DAQ-quantized against the base (``QuantConfig(use_fused_kernel=True)``,
+    storage mode: the sweep and the quantizer launch) and served phase 6's
+    8 requests through the engine.  Kernel counts are zeroed just before
+    the quantize and read after the serve.
+
+    Prints each step's loss (finite, the last below the first), train
+    tokens/s, peak GB, one step's host and device-busy ms, idle share and
+    launches (``device_breakdown`` over steps 6-8), the optimizer update's
+    share of a step (CUDA events around ``adamw_update``); one step (step
+    3) runs under ``torch.cuda.set_sync_debug_mode("error")``.  Then
+    quantize seconds, the real SFT delta's global sign rate and cosine,
+    serve tok/s, and the launch formulas of the quantize and the serve at
+    ``TRAIN_LAYERS`` layers.  Ends with ``train_agreement``."""
+    import repro_torch.launch.steps as steps_mod
+    from repro_torch.configs import QuantConfig, TrainConfig, get_arch
+    from repro_torch.data import train_batch
+    from repro_torch.engine import Engine
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.kernels.scale_search.kernel import sweep_plan
+    from repro_torch.launch.train import default_language
+    from repro_torch.models import build_model
+    from repro_torch.quantize import quantize
+
+    cfg = dataclasses.replace(get_arch("glm4-9b"), n_layers=TRAIN_LAYERS)
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=2, total_steps=TRAIN_STEPS,
+                     remat="full")
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=model.device).manual_seed(seed + 5))
+    base = clone_tree(params)
+    state = steps_mod.init_train_state(model, tc, None, params)
+    spec = default_language(cfg, tc.seed + 100)
+    step_fn = steps_mod.make_train_step(model, tc)
+    B, S = TRAIN_BATCH
+    log(f"train phase: {cfg.name} {cfg.n_layers} layers at full width "
+        f"({cfg.param_count() / 1e9:.3f} B params), {TRAIN_STEPS} steps of {B} x {S} tokens "
+        f"(mixed corpus, LanguageSpec(vocab={spec.vocab})), remat full, AdamW fp32 master "
+        f"and moments; state {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+
+    losses, update_ms, step_ms = [], [], []
+    real_update = steps_mod.adamw_update
+
+    def timed_update(*a):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real_update(*a)
+        ev[1].record()
+        update_ms.append(ev)
+        return out
+
+    def one_step(t, sync_error=False):
+        nonlocal state
+        batch = train_batch(spec, tc.seed, t, B, S, style="mixed", device=model.device)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        if sync_error:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, m = step_fn(state, batch)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        ev[1].record()
+        step_ms.append(ev)
+        losses.append(m["loss"])
+        return m
+
+    steps_mod.adamw_update = timed_update
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in range(TRAIN_STEPS - 3):
+            one_step(t, sync_error=(t == 2))
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        it = iter(range(TRAIN_STEPS - 3, TRAIN_STEPS))
+
+        def run():
+            one_step(next(it))
+            torch.cuda.synchronize()
+
+        br = device_breakdown(torch, f"train step ({B} x {S} tokens, {TRAIN_LAYERS} layers)",
+                              run, 1, "step", top=10)
+    finally:
+        steps_mod.adamw_update = real_update
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(x) for x in losses]
+    upd = [a.elapsed_time(b) for a, b in update_ms]
+    whole = [a.elapsed_time(b) for a, b in step_ms]
+    share = sum(upd[1:]) / sum(whole[1:])
+    log(f"train phase: losses {[round(x, 4) for x in losses]}; steps 1-{TRAIN_STEPS - 3} in "
+        f"{first_s:.2f} s ({(TRAIN_STEPS - 3) * B * S / first_s:.0f} tok/s, the first step's "
+        f"warm-up included); a step {br['host_ms']:.1f} ms on the host clock = "
+        f"{B * S / br['host_ms'] * 1e3:.0f} train tok/s; event-timed steps "
+        f"{[round(x, 1) for x in whole]} ms, of which adamw_update "
+        f"{[round(x, 1) for x in upd]} ms ({share:.3f} of steps 2-{TRAIN_STEPS}); peak "
+        f"{peak:.2f} GB; step 3 ran under set_sync_debug_mode('error')")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train phase: losses {losses}")
+
+    post = state["params"]
+    del state
+    torch.cuda.empty_cache()
+    for k in KERNELS:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qparams, report = quantize(post, base, QuantConfig(use_fused_kernel=True), mode="storage")
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    quant_peak = torch.cuda.max_memory_allocated() / 1e9
+    del post, base
+    torch.cuda.empty_cache()
+    engine = Engine(model, qparams, slots=SLOTS, cache_len=PROMPT + GEN, k_steps=K_STEPS)
+    t0 = time.perf_counter()
+    outputs, stats = engine.serve(list(prompts), gen_tokens=GEN, return_stats=True)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    g = report.global_chosen
+    log(f"train phase, quantize of the SFT'd tree: {quant_s:.2f} s, peak {quant_peak:.2f} GB, "
+        f"{report.n_quantized} tensors; the real SFT delta: global sign rate "
+        f"{g['sign_rate']:.6f} (AbsMax {report.global_default['sign_rate']:.6f}), cosine "
+        f"{g['cosine']:.6f} (AbsMax {report.global_default['cosine']:.6f}), delta L2 "
+        f"{g['delta_l2']:.4f}")
+    log(f"train phase, serve: {len(outputs)} requests x {GEN} tokens in {serve_s:.2f} s "
+        f"({SLOTS * GEN / serve_s:.1f} tok/s end to end); launches {json.dumps(launches)}")
+    n = leaf_layers(report)
+    qcfg = QuantConfig()
+    passes = len(sweep_plan(1 + qcfg.n_coarse)) + len(sweep_plan(1 + qcfg.n_fine))
+    want = {"scale_search": passes * n, "fp8_quant": n,
+            **fp8_serve_launches(stats, cfg.n_layers)}
+    if launches != want:
+        raise AssertionError(f"train phase: launches {launches}, expected {want}")
+    for out in outputs:
+        if len(out) != GEN or not all(0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"train phase: bad output row {out[:8]}...")
+    if not all(math.isfinite(v) for v in g.values()):
+        raise AssertionError(f"train phase: non-finite report metrics {g}")
+    leaf_sign_rates_hold(report, "DAQ of the SFT'd tree")
+    del qparams, engine
+    torch.cuda.empty_cache()
+    train_agreement(torch, seed)
+
+
+def study_phase(torch) -> None:
+    """Phase 7i: ``repro_torch.pipeline.daq_study`` on the card at the
+    reference's ``STUDY_CFG``: ``prepare_models`` (base then SFT, each
+    ``train_loop`` with its checkpoints) into a temporary directory at
+    ``STUDY_STEPS`` (base, SFT) steps, then ``run_tables(("2", "4"))``: the
+    baselines and the sign-guided search (each row printed by the study:
+    style, general, sign rate, cosine, ΔL2).  Asserts that the SFT'd
+    model's style is above the base's (the study's premise) and that every
+    row is finite."""
+    import tempfile
+    from repro_torch.pipeline import daq_study as DS
+    base_steps, sft_steps = STUDY_STEPS
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        DS.prepare_models(study_dir=d, base_steps=base_steps, sft_steps=sft_steps)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        results = DS.run_tables(("2", "4"), study_dir=d, base_steps=base_steps,
+                                sft_steps=sft_steps)
+        tables_s = time.perf_counter() - t0
+    rows = {f"T{t}/{name}": row for t, named in results.items() for name, row in named.items()}
+    log(f"study phase: {base_steps} + {sft_steps} steps of {DS.BATCH} x {DS.SEQ} tokens in "
+        f"{train_s:.1f} s ({(base_steps + sft_steps) * DS.BATCH * DS.SEQ / train_s:.0f} train "
+        f"tok/s, checkpoints included); tables 2 and 4 ({len(rows)} rows) in {tables_s:.1f} s")
+    base, post = results["2"]["base_bf16"], results["2"]["post_bf16"]
+    if not post["style"] > base["style"]:
+        raise AssertionError(f"study phase: post-SFT style {post['style']} is not above the "
+                             f"base's {base['style']}")
+    for name, row in rows.items():
+        if not all(math.isfinite(v) for v in row.values()):
+            raise AssertionError(f"study phase: non-finite row {name}: {row}")
+    log(f"study phase: style {base['style']:.4f} -> {post['style']:.4f} after SFT, general "
+        f"{base['general']:.4f} -> {post['general']:.4f}")
+
+
+# ---------------------------------------------------------------------------
 # Phase 7e: the rest of the quantizer (daq-per-block, SmoothQuant, AWQ)
 # ---------------------------------------------------------------------------
 
@@ -2293,12 +2559,15 @@ def clone_tree(tree):
 
 
 def device_breakdown(torch, label: str, run, per: int, unit: str, top: int = 8,
-                     always: tuple[str, ...] = ()) -> None:
+                     always: tuple[str, ...] = ()) -> dict:
     """Host time of ``run()`` (which ends in a synchronize) without the
     profiler, then one ``torch.profiler`` window over another ``run()`` for
     the device's busy time, its kernel launches and the kernels by time
     (the ``top`` ones, and every one whose name holds a string of
-    ``always``); everything per ``unit`` (``run`` does ``per`` of them)."""
+    ``always``); everything per ``unit`` (``run`` does ``per`` of them).
+    ``run`` is called three times (a warm-up first).  Returns the per-unit
+    ``host_ms``, ``busy_ms`` and ``launches`` (the last two when the
+    profiler saw the device)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2317,7 +2586,7 @@ def device_breakdown(torch, label: str, run, per: int, unit: str, top: int = 8,
     if not kernels:
         log(f"{label} breakdown: the profiler saw no device events; device busy time "
             "not measured")
-        return
+        return {"host_ms": host_ms}
     busy_ms = sum(t for _, t in kernels.values()) / per
     n_launch = sum(n for n, _ in kernels.values()) / per
     log(f"{label} breakdown: {host_ms:.2f} ms per {unit} on the host clock; device busy "
@@ -2333,6 +2602,7 @@ def device_breakdown(torch, label: str, run, per: int, unit: str, top: int = 8,
     for i, (name, (n, t)) in enumerate(ranked):
         if i < top or any(a in name for a in always):
             log(f"  {t / per:8.3f} ms/{unit}  {n / per:6.0f} launches/{unit}  {name[:90]}")
+    return {"host_ms": host_ms, "busy_ms": busy_ms, "launches": n_launch}
 
 
 def breakdowns(torch, model, qparams, prompts, steps: int = BREAKDOWN_STEPS, tree: str = "",
@@ -2585,6 +2855,12 @@ def main() -> int:
     t0 = time.perf_counter()
     cli_phase(torch)
     log(f"cli phase passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    train_phase(torch, args.seed, prompts)
+    log(f"train phase passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    study_phase(torch)
+    log(f"study phase passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     quantize_breakdown(torch, args.seed)
     log(f"quantize breakdown took {time.perf_counter() - t0:.1f} s")

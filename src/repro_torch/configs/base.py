@@ -1,8 +1,9 @@
 """Configuration dataclasses for the PyTorch port.
 
 The port's own copy of ``repro/configs/base.py`` (the slice's part of it):
-every architecture is one frozen ``ModelConfig`` and quantization settings
-are one ``QuantConfig``, field for field as in the reference, so a config
+every architecture is one frozen ``ModelConfig``, quantization settings
+are one ``QuantConfig`` and training settings one ``TrainConfig``, field
+for field as in the reference, so a config
 built for one package means the same thing in the other.
 """
 from __future__ import annotations
@@ -196,3 +197,23 @@ class QuantConfig:
         if self.fine_delta:
             return self.fine_delta
         return (self.alpha_max - self.alpha_min) / max(self.n_coarse - 1, 1)
+
+
+# ---------------------------------------------------------------------------
+# Training configuration
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    grad_clip: float = 1.0
+    microbatch: int = 0               # 0 -> no gradient accumulation
+    remat: str = "full"               # none | full | dots_saveable
+    opt_state_dtype: str = "float32"  # float32 | bfloat16 | int8 (8-bit Adam)
+    grad_compress: str = "none"       # none | int8_ef (error-feedback int8 all-reduce)
+    seed: int = 0

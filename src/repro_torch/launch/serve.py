@@ -65,6 +65,19 @@ from repro_torch.models import build_model
 SPEC_VOCAB_CAP = 4096
 
 
+def capped_language(vocab: int, what: str, seed: int = 1234) -> LanguageSpec:
+    """The synthetic language of a ``vocab``-token model: its vocabulary,
+    capped at ``SPEC_VOCAB_CAP`` tokens (a capped language's ids are valid
+    ids of the model's vocabulary), which it prints, ``what`` naming the
+    caller and the use (``"[serve] prompts and calibration"``)."""
+    spec = LanguageSpec(vocab=min(vocab, SPEC_VOCAB_CAP), seed=seed)
+    if spec.vocab < vocab:
+        print(f"{what} use LanguageSpec(vocab={spec.vocab}), not the model's {vocab} "
+              f"tokens: its [V, V] float32 bigram table would take "
+              f"{4 * vocab ** 2 / 1e9:.1f} GB", flush=True)
+    return spec
+
+
 def serve(model, params, requests, *, batch: int, gen_tokens: int, cache_len: int,
           greedy: bool = True, sampling: SamplingParams | None = None, k_steps: int = 8,
           mesh=None, seed: int = 0) -> list[list[int]]:
@@ -228,11 +241,7 @@ def main(argv: list[str] | None = None):
     dev = model.device
     params = model.init(torch.Generator(device=dev).manual_seed(0))
 
-    spec = LanguageSpec(vocab=min(cfg.vocab_size, SPEC_VOCAB_CAP))
-    if spec.vocab < cfg.vocab_size:
-        print(f"[serve] prompts and calibration use LanguageSpec(vocab={spec.vocab}), "
-              f"not the model's {cfg.vocab_size} tokens: its [V, V] float32 bigram "
-              f"table would take {4 * cfg.vocab_size ** 2 / 1e9:.1f} GB", flush=True)
+    spec = capped_language(cfg.vocab_size, "[serve] prompts and calibration")
     if args.daq:
         from repro_torch.quantize import quantize
         qcfg = QuantConfig(method=args.method or "daq", metric=args.metric,

@@ -58,7 +58,8 @@ def chunked_attention(q, k, v, *, causal: bool, window: int = 0, softcap: float 
     lengths; an explicit ``q_chunk`` / ``kv_chunk`` is kept as given (the
     inputs are padded up to it), so two calls of different lengths run
     tiles of one shape: the engine's chunked and one-shot prefills do
-    (``Engine._tiles``).  Returns [B, Sq, H, hd] in q.dtype."""
+    (``Engine._tiles``).  Differentiable (``flash_attention``'s backward).
+    Returns [B, Sq, H, hd] in q.dtype."""
     from repro_torch.runtime import flags
     B, Sq, H, hd = q.shape
     Skv, Kv = k.shape[1], k.shape[2]

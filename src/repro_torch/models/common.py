@@ -141,3 +141,50 @@ def last_token_logits(p: dict, x: torch.Tensor,
     idx = (lengths.long() - 1).clamp(0, S - 1)
     xg = x[torch.arange(B, device=x.device), idx][:, None]
     return lm_logits(p, xg)[:, 0]
+
+
+# ---------------------------------------------------------------------------
+# Chunked softmax cross-entropy (logits never fully materialized)
+# ---------------------------------------------------------------------------
+
+def _xent_chunk(head_params: dict, xc, lc, mc):
+    logits = lm_logits(head_params, xc).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    lc_safe = lc.long().clamp_min(0)
+    tgt = torch.gather(logits, -1, lc_safe[..., None])[..., 0]
+    nll = (logz - tgt) * mc
+    correct = (logits.argmax(dim=-1) == lc_safe) & (mc > 0)
+    return nll.sum(), correct.float().sum(), mc.sum()
+
+
+def chunked_xent(head_params: dict, x: torch.Tensor, labels: torch.Tensor,
+                 chunk: int = 512, mask: torch.Tensor | None = None):
+    """Mean next-token cross-entropy over sequence chunks of ``chunk`` rows.
+
+    x [B, S, D], labels [B, S] (< 0 = ignore).  Each chunk's logits are
+    recomputed in the backward (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint``), so the [B, S, V] fp32 logits never exist at once:
+    peak extra memory is one chunk's [B, chunk, V].  Returns (loss,
+    accuracy, n_valid), fp32 0-d tensors, summed chunk by chunk in the
+    reference's order."""
+    from torch.utils.checkpoint import checkpoint
+    B, S, D = x.shape
+    chunk = min(chunk, S)
+    n_chunks = max(S // chunk, 1)
+    rem = S - n_chunks * chunk
+    if mask is None:
+        mask = labels >= 0
+    mask = mask.float()
+    tot = cor = n = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_chunks):
+        rows = slice(i * chunk, (i + 1) * chunk)
+        args = (head_params, x[:, rows], labels[:, rows], mask[:, rows])
+        l, c, m = (checkpoint(_xent_chunk, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+                   if torch.is_grad_enabled() else _xent_chunk(*args))
+        tot, cor, n = tot + l, cor + c, n + m
+    if rem:
+        l, c, m = _xent_chunk(head_params, x[:, -rem:], labels[:, -rem:], mask[:, -rem:])
+        tot, cor, n = tot + l, cor + c, n + m
+    n = n.clamp_min(1.0)
+    return tot / n, cor / n, n

@@ -15,8 +15,10 @@ the cache's top level, as the reference's does; ``prefill_chunk_paged``
 runs one piece of each slot's prompt through that cache (chunked prefill,
 prefix-hit tails), and ``verify_chunk_paged`` a speculative round's draft
 tokens (each row the decode step at its position, on the CPU bit for bit).
-``run_stack_train`` is the full-sequence forward with no cache that
-calibration walks (``data/synthetic.py::_full_logits``).
+``run_stack_train`` is the full-sequence forward with no cache: the one
+calibration walks (``data/synthetic.py::_full_logits``) without grad, and
+the one ``Model.loss_fn`` trains through with grad, each layer under the
+reference's remat policies (``_remat``).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.core.policy import tree_map
-from repro_torch.models.common import (apply_mlp, apply_norm, apply_rope,
+from repro_torch.models.common import (apply_mlp, apply_norm, apply_rope, chunked_xent,
                                        embed_tokens, init_embed, init_mlp, init_norm,
                                        last_token_logits, lm_logits, rope_cos_sin)
 from repro_torch.quant_runtime import qlinear
@@ -223,22 +225,65 @@ def apply_layer_train(p: dict, x, cfg: ModelConfig):
     return x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm_eps))
 
 
-@torch.no_grad()
-def run_stack_train(stack: dict, x, cfg: ModelConfig):
-    """The forward half of the reference's ``run_stack_train``: the stacked
-    layers ``stack`` (``params["stack"]["L0"]``) applied in order to ``x``
-    [B, S, D], each layer's ``qlinear.matmul``s in the reference's order.
-    The reference walks its scan eagerly for calibration
-    (``flags["unroll_layers"]``); this loop always is eager."""
-    for i in range(n_stacked(stack)):
-        x = apply_layer_train(layer_view(stack, i), x, cfg)
+def _layers(stack: dict, n: int) -> list:
+    """The ``n`` layers of a stacked tree for a forward with grad: each dense
+    leaf is ``unbind``-ed once, so its backward stacks every layer's
+    gradient into one ``[n, ...]`` tensor in one node (a slice per layer
+    would add a zero-filled stack per layer)."""
+    parts = tree_map(lambda t: t if isinstance(t, QuantizedTensor) else t.unbind(0), stack)
+    return [tree_map(lambda t: t.layer(i) if isinstance(t, QuantizedTensor) else t[i], parts)
+            for i in range(n)]
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``"dots_saveable"``: keep matrix
+    products, recompute everything else (``jax.checkpoint_policies.dots_saveable``)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    dots = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+            torch.ops.aten.addmm.default)
+    return CheckpointPolicy.MUST_SAVE if op in dots else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, policy: str):
+    """``fn`` under the reference's remat policy: ``"none"`` keeps every
+    activation, ``"dots_saveable"`` keeps the matrix products, anything else
+    (``"full"``) keeps only the layer's input and recomputes the rest in the
+    backward."""
+    if policy == "none":
+        return fn
+    from functools import partial
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+    kw = {"use_reentrant": False, "preserve_rng_state": False}
+    if policy == "dots_saveable":
+        kw["context_fn"] = partial(create_selective_checkpoint_contexts, _save_dots)
+    return lambda *args: checkpoint(fn, *args, **kw)
+
+
+def run_stack_train(stack: dict, x, cfg: ModelConfig, remat: str = "full"):
+    """The stacked layers ``stack`` (``params["stack"]["L0"]``) applied in
+    order to ``x`` [B, S, D] over whole sequences, no cache, each layer's
+    ``qlinear.matmul``s in the reference's order.
+
+    Without grad (calibration, ``data/synthetic.py::_full_logits``) each
+    layer reads views of the stacked leaves and ``remat`` is moot.  With
+    grad, each layer runs under ``remat`` (``_remat``) and the gradients
+    reach the stacked leaves in the reference's ``[n_layers, ...]``
+    layout; the forward's bits are the same either way."""
+    n = n_stacked(stack)
+    if not torch.is_grad_enabled():
+        for i in range(n):
+            x = apply_layer_train(layer_view(stack, i), x, cfg)
+        return x
+    layer = _remat(apply_layer_train, remat)
+    for lp in _layers(stack, n):
+        x = layer(lp, x, cfg)
     return x
 
 
 class Model:
-    """Dense decoder: ``init``, ``init_cache``, ``prefill``, ``decode_step``
-    with the reference ``Model``'s signatures (a ``torch.Generator`` in place
-    of a PRNG key)."""
+    """Dense decoder: ``init``, ``loss_fn``, ``init_cache``, ``prefill``,
+    ``decode_step`` with the reference ``Model``'s signatures (a
+    ``torch.Generator`` in place of a PRNG key)."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         if cfg.family != "dense":
@@ -254,6 +299,21 @@ class Model:
         return {"embed": init_embed(gen, cfg, dt, dev),
                 "stack": _init_stack(gen, cfg, cfg.n_layers, dt, dev),
                 "final_norm": init_norm(cfg, dt, dev)}
+
+    def loss_fn(self, params: dict, batch: dict, remat: str = "full"):
+        """Mean next-token loss of ``batch`` (``tokens``, ``labels`` [B, S];
+        labels < 0 ignored): embed -> stack (under ``remat``) -> final norm
+        -> ``chunked_xent``.  Returns ``(loss, {"loss", "aux_loss",
+        "accuracy", "n_tokens"})`` as 0-d fp32 tensors; ``aux_loss`` (the
+        MoE router's in the reference) is 0 for the dense family."""
+        cfg = self.cfg
+        x = embed_tokens(params["embed"], batch["tokens"])
+        x = run_stack_train(params["stack"]["L0"], x, cfg, remat=remat)
+        x = apply_norm(params["final_norm"], x, cfg.norm_eps)
+        loss, acc, n_tok = chunked_xent(params["embed"], x, batch["labels"])
+        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
+        return loss + aux, {"loss": loss, "aux_loss": aux, "accuracy": acc,
+                            "n_tokens": n_tok}
 
     def init_cache(self, batch: int, cache_len: int) -> dict:
         cfg = self.cfg

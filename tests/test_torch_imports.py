@@ -36,7 +36,10 @@ def test_importing_every_port_module_loads_no_reference_code():
     assert "repro_torch.quantize.equalize" in mods
     for m in ("repro_torch.telemetry.metrics", "repro_torch.telemetry.trace",
               "repro_torch.engine.legacy", "repro_torch.checkpoint.store",
-              "repro_torch.launch.serve"):
+              "repro_torch.launch.serve", "repro_torch.optim", "repro_torch.optim.adamw",
+              "repro_torch.optim.compress", "repro_torch.launch.steps",
+              "repro_torch.launch.train", "repro_torch.pipeline",
+              "repro_torch.pipeline.daq_study"):
         assert m in mods, m
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
