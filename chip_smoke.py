@@ -65,7 +65,8 @@ Phases:
      engines record metrics and a trace, and the chunked engine's first 8
      requests served with telemetry off and on agree in tokens, syncs,
      dispatches, admissions and launches;
-  7d. self-speculative decoding (``spec_phase``): phase 5's bf16 tree
+  7d. self-speculative decoding (``spec_phase``, on the first
+     ``SPEC_LAYERS`` = 10 layers of phase 5's model): phase 5's bf16 tree
      verifying, ``n_spec=4``: phase 6's requests without speculation (the
      baseline), with the DAQ draft (dynamic depth, then pinned) and with
      an AbsMax draft; phase 7c's requests composed with chunked prefill
@@ -114,6 +115,20 @@ Phases:
   7i. the paper's study (``study_phase``): ``pipeline/daq_study.py`` at its
      own ``STUDY_CFG``, base and SFT trained on the card (600 + 350 steps),
      Tables 2 and 4, post-SFT style above the base's;
+  7j. the SSM family (``ssm_phase``, after 7i): Mamba2-780M at full width
+     and all 48 layers, seeded bf16 weights (base = post + 1 % noise),
+     DAQ-quantized (the sweep's and the quantizer's launches asserted from
+     the tree; both held against their plain versions on the ragged leaves
+     ``in_dt`` [1536,48] and the embedding [50280,1536]), then 8 greedy
+     requests of four lengths above the SSD chunk of 256 (300 to 1,000
+     tokens), 64 tokens each, through ``Engine(slots=8, k_steps=8)``: one
+     prefill call per length, the decode route 4 x 48 launches a decode
+     step, the wgmma route 4 x 48 a prefill call, the CUDA-core route none
+     (``in_dt`` and the LM head are ragged: dequantize and
+     ``torch.matmul``); the two tensor-core routes against their plain
+     versions at [1536,256] and [3072,1536]; tok/s, prefill seconds and one
+     decode step broken down; a small bf16 SSM model's card run against
+     its CPU run (``ssm_small_agreement``);
   8. break one decode step, one prefill and one quantize (GLM-4-9B cut to
      4 layers at full width) down: host time, device busy time, kernel
      launches, the decode route's device time and the kernels that take
@@ -157,8 +172,11 @@ PAGED_REQUESTS, PAGED_CACHE_LEN, BLOCK, PRESSURE_BLOCKS = 16, 560, 16, 120
 # so each chunk product has SLOTS * 64 = 512 rows (the wgmma route)
 SYSTEM_PROMPT, SUFFIX_MIN, SUFFIX_MAX, CHUNK = 128, 16, 368, 64
 # the speculative phase: up to 4 draft tokens a round, so a round verifies
-# SLOTS * 5 = 40 rows of the bf16 tree
+# SLOTS * 5 = 40 rows of the bf16 tree; it runs the first 10 of the main
+# path's layers (40 until phase 7j joined the script: 7d took 192-265 s
+# of host-bound serving at 40, and the script 1,029 s of its 1,200)
 N_SPEC = 4
+SPEC_LAYERS = 10
 # the methods phase's calibration language: 4,096 tokens (its [V, V] float32
 # bigram table is 67 MB; at GLM-4-9B's vocabulary it would be 91.9 GB)
 CALIB_VOCAB = 4096
@@ -174,6 +192,9 @@ TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_CHECK_STEPS = 8, 8, (4, 512), 3
 TRAIN_LR = 1e-4
 # the study phase's (base, SFT) steps: the reference's full budget
 STUDY_STEPS = (600, 350)
+# the SSM phase: Mamba2-780M's 8 requests, four lengths above its SSD chunk
+# of 256 and none a multiple of it (a ragged last chunk), 64 tokens each
+SSM_LENS = (300, 300, 520, 520, 700, 700, 1000, 1000)
 
 
 def log(*a):
@@ -1243,8 +1264,8 @@ def admitted(torch, engine, requests):
         cache = model.init_cache(cfg.slots, cfg.cache_len)
     state = init_slot_state(cfg.slots, model.device)
     gen = torch.Generator(device=model.device).manual_seed(0)
-    cache, state, _ = engine._admit(cache, state, list(range(cfg.slots)),
-                                    requests[:cfg.slots], GEN, gen)
+    cache, state, _, _ = engine._admit(cache, state, list(range(cfg.slots)),
+                                       requests[:cfg.slots], GEN, gen)
     return cache, state, gen
 
 
@@ -1663,6 +1684,26 @@ def verify_decode_bits(torch, engine, requests, outputs) -> str:
     return (f"bf16 verify vs decode steps: {'; '.join(rows)}; layer 0's products and the LM "
             f"head, rows of x[{SLOTS * C}] @ w vs x[{SLOTS}] @ w, values differing: "
             f"{', '.join(products)}")
+
+
+def first_layers(model, n: int, *trees):
+    """A model of ``model``'s first ``n`` layers and ``trees`` cut to them:
+    each stacked leaf (under ``stack``) viewed at its first ``n`` layers,
+    no copy."""
+    from repro_torch.models import build_model
+    from repro_torch.quant_runtime.qparams import QuantizedTensor
+
+    def cut(t):
+        if isinstance(t, dict):
+            return {k: cut(v) for k, v in t.items()}
+        if isinstance(t, QuantizedTensor):
+            return dataclasses.replace(t, data=t.data[:n], scale=t.scale[:n],
+                                       eq_scale=None if t.eq_scale is None else t.eq_scale[:n])
+        return t[:n]
+
+    cfg = dataclasses.replace(model.cfg, n_layers=n)
+    return (build_model(cfg, device=model.device),
+            *({**t, "stack": cut(t["stack"])} for t in trees))
 
 
 def spec_phase(torch, args, model, post, qparams, prompts) -> dict:
@@ -2552,6 +2593,237 @@ def chunk_breakdown(torch, model, qparams, requests, ref_engine) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Phase 7j: the SSM family, Mamba2-780M at full width and depth
+# ---------------------------------------------------------------------------
+
+def sync(torch, device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def ssm_serve_launches(stats: dict, n_layers: int) -> dict:
+    """The fp8 routes' launches a bf16 serve of a Mamba-2 tree makes: four
+    block-128 products a layer (``in_z``, ``in_x``, ``in_bc``,
+    ``out_proj``), prefill rows on the wgmma route and decode rows on the
+    decode route; ``in_dt`` [D, heads] and the LM head [D, 50280] are
+    ragged, so they dequantize and take ``torch.matmul``
+    (``qlinear._fused_kernel_applies``), and nothing takes the CUDA-core
+    route."""
+    return {"fp8_matmul_wgmma": 4 * n_layers * stats["prefill_calls"],
+            "fp8_matmul_decode": 4 * n_layers * stats["decode_steps"],
+            "fp8_matmul": 0}
+
+
+def ragged_leaf_checks(torch, post, base, qcfg) -> None:
+    """The sweep and the quantizer against their plain versions on the two
+    ragged leaves of the Mamba-2 tree, ``in_dt`` of layer 0 [1536,48] and
+    the embedding [50280,1536], padded to the block grid as the search pads
+    them: sign counts and codes and scales equal, the other sums as phase 3
+    holds them."""
+    from repro_torch.core.granularity import EPS, pad_to_blocks, to_blocked
+    from repro_torch.core.search import linspace
+    from repro_torch.kernels.fp8_quant.kernel import quantize_fp8_cuda
+    from repro_torch.kernels.fp8_quant.ref import quantize_fp8_ref
+    from repro_torch.kernels.scale_search.kernel import sweep_partials_cuda
+    from repro_torch.kernels.scale_search.ref import sweep_partials_ref
+    bs = qcfg.block_size
+    alphas = torch.cat([torch.ones(1, device="cuda"),
+                        linspace(qcfg.alpha_min, qcfg.alpha_max, qcfg.n_coarse, "cuda")])
+    for name, wp, wb in (("in_dt", post["stack"]["L0"]["mamba"]["in_dt"][0],
+                          base["stack"]["L0"]["mamba"]["in_dt"][0]),
+                         ("embed", post["embed"]["embed"], base["embed"]["embed"])):
+        wp, _ = pad_to_blocks(wp.float(), bs)
+        wb, _ = pad_to_blocks(wb.float(), bs)
+        amax = to_blocked(wp, bs).abs().amax(dim=(1, 3)).clamp_min(EPS)
+        pk = sweep_partials_cuda(wp, wb, amax, alphas, block_size=bs)
+        pp = sweep_partials_ref(wp, wb, amax, alphas, block_size=bs)
+        (qk, sk), (qp, sp) = (fn(wp, alphas[3:4], block=bs)
+                              for fn in (quantize_fp8_cuda, quantize_fp8_ref))
+        torch.cuda.synchronize()
+        cont = [0, 2, 3, 4]
+        err = (pk[..., cont] - pp[..., cont]).abs()
+        tol = 1e-4 * pp[..., cont].abs() + 1e-6 * pp[..., cont].abs().max()
+        n_codes, n_scales = codes_differ(torch, qk, qp), floats_differ(torch, sk, sp)
+        ok = bool((pk[..., 1] == pp[..., 1]).all()) and bool((err <= tol).all()) \
+            and n_codes == 0 and n_scales == 0
+        log(f"ssm phase, ragged leaf {name} {list(wp.shape)} padded: sweep of {len(alphas)} "
+            f"candidates, max |err| sums {err.max().item():.3e}, sign counts "
+            f"{'equal' if bool((pk[..., 1] == pp[..., 1]).all()) else 'DIFFER'}; quantizer "
+            f"{n_codes} code / {n_scales} scale mismatches -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"ssm phase: a kernel disagrees with its plain version on "
+                                 f"the ragged leaf {name}")
+
+
+def ssm_small_agreement(torch, seed: int, device: str = "cuda") -> None:
+    """A small bf16 Mamba-2 (2 layers, width 256, 16 heads of 32, state 64,
+    1,024 tokens: every product but ``in_dt`` a block-128 multiple)
+    quantized and served on ``device`` with the kernels and on the CPU with
+    the plain versions: alphas and codes equal; 4 requests of 40 and 45
+    tokens (SSD chunk 32), 8 tokens each, whose greedy tokens agree up to
+    the first step where the CPU run's top-2 margin is within 5 % of the
+    logit scale (the bf16 tolerance ``small_model_agreement`` holds
+    logits to)."""
+    from repro_torch.configs import QuantConfig, get_arch
+    from repro_torch.engine import Engine
+    from repro_torch.core.policy import tree_leaves_with_path, tree_map
+    from repro_torch.models import build_model
+    from repro_torch.quantize import quantize
+    cfg = dataclasses.replace(get_arch("mamba2-780m"), n_layers=2, d_model=256, d_inner=512,
+                              ssm_head_dim=32, ssm_state=64, ssm_chunk=32, vocab_size=1024)
+    m_cpu, m_dev = build_model(cfg, device="cpu"), build_model(cfg, device=device)
+    g = torch.Generator().manual_seed(seed + 11)
+    post = m_cpu.init(g)
+    base = make_base(torch, post, g)
+    qcfg = QuantConfig(use_fused_kernel=True)
+    q_cpu, r_cpu = quantize(post, base, qcfg, mode="storage")
+    to_dev = lambda t: t.to(device)
+    q_dev, r_dev = quantize(tree_map(to_dev, post), tree_map(to_dev, base), qcfg,
+                            mode="storage")
+    for name, leaf in r_cpu.per_leaf.items():
+        if not (leaf["alpha"] == r_dev.per_leaf[name]["alpha"]).all():
+            raise AssertionError(f"small ssm model: alpha differs on {name}")
+    for (path, a), (_, b) in zip(tree_leaves_with_path(q_cpu), tree_leaves_with_path(q_dev)):
+        if hasattr(a, "granularity") and not (
+                torch.equal(a.data.view(torch.uint8), b.data.cpu().view(torch.uint8))
+                and torch.equal(a.scale, b.scale.cpu())):
+            raise AssertionError(f"small ssm model: codes differ on {'/'.join(path)}")
+    prompts = [torch.randint(0, cfg.vocab_size, (L,), generator=g) for L in (40, 45, 40, 45)]
+    outs = {}
+    for name, model, q in (("cpu", m_cpu, q_cpu), (device, m_dev, q_dev)):
+        eng = Engine(model, q, slots=4, cache_len=64, k_steps=4)
+        outs[name], stats = eng.serve(prompts, gen_tokens=8, return_stats=True)
+        if stats["prefill_calls"] != 2:
+            raise AssertionError(f"small ssm model: {stats['prefill_calls']} prefill calls "
+                                 f"on {name}, expected 2")
+    held = total = 0
+    for p, out_c, out_d in zip(prompts, outs["cpu"], outs[device]):
+        logits, cache = m_cpu.prefill(q_cpu, {"tokens": p[None]})
+        for tok_c, tok_d in zip(out_c, out_d):
+            lf = logits.float()[0]
+            top = torch.topk(lf, 2).values
+            if float(top[0] - top[1]) <= 0.05 * float(lf.abs().max()):
+                break
+            held += 1
+            if tok_c != tok_d:
+                raise AssertionError(f"small ssm model: greedy token {tok_d} on {device}, "
+                                     f"{tok_c} on the CPU, at a margin above 5 %")
+            logits, cache = m_cpu.decode_step(q_cpu, torch.tensor([[tok_c]]), cache)
+        total += len(out_c)
+    same = sum(a == b for oc, od in zip(outs["cpu"], outs[device]) for a, b in zip(oc, od))
+    log(f"small ssm model agreement: alphas equal, codes bit-equal; greedy tokens {same} of "
+        f"{total} equal, {held} of them held (top-2 margin above 5 %)")
+    if held < len(prompts):
+        raise AssertionError("small ssm model: no token was held by its margin")
+
+
+def ssm_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
+    """Phase 7j: Mamba2-780M at full width and all 48 layers, quantized and
+    served through the port's entry points; the kernels' launches of the
+    quantize and the serve go into ``records``."""
+    from repro_torch.configs import QuantConfig, get_arch
+    from repro_torch.engine import Engine
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.kernels.scale_search.kernel import sweep_plan
+    from repro_torch.models import build_model
+    from repro_torch.quantize import quantize
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = get_arch("mamba2-780m")
+    log(f"ssm phase: {cfg.name} d_model={cfg.d_model} d_inner={cfg.resolved_d_inner} "
+        f"heads={cfg.n_ssm_heads}x{cfg.ssm_head_dim} state={cfg.ssm_state} "
+        f"chunk={cfg.ssm_chunk} vocab={cfg.vocab_size} layers={cfg.n_layers} "
+        f"({cfg.param_count() / 1e9:.3f} B params)")
+    model = build_model(cfg, device=device)
+    t0 = time.perf_counter()
+    post, base = make_weights(torch, model, seed + 7)
+    sync(torch, device)
+    log(f"ssm phase: post + base made in {time.perf_counter() - t0:.2f} s")
+    g = torch.Generator(device=model.device).manual_seed(seed + 8)
+    requests = [torch.randint(0, cfg.vocab_size, (L,), generator=g, device=model.device)
+                for L in SSM_LENS]
+    qcfg = QuantConfig(use_fused_kernel=True)
+
+    # ---- the SSM path: counts zeroed just before, read just after ----
+    for k in KERNELS:
+        k.launches = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    qparams, report = quantize(post, base, qcfg, mode="storage")
+    sync(torch, device)
+    quant_s = time.perf_counter() - t0
+    quant_peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+    engine = Engine(model, qparams, slots=SLOTS, cache_len=max(SSM_LENS) + GEN,
+                    k_steps=K_STEPS)
+    t0 = time.perf_counter()
+    outputs, stats = engine.serve(requests, gen_tokens=GEN, return_stats=True)
+    sync(torch, device)
+    serve_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in KERNELS}
+    # ---- end of the SSM path ----
+
+    n = leaf_layers(report)
+    log(f"ssm phase, quantize: {quant_s:.2f} s for {report.n_quantized} tensors, {n} "
+        f"leaf-layers ({report.original_bytes / 1e9:.2f} GB bf16 -> "
+        f"{report.quantized_bytes / 1e9:.2f} GB), peak {quant_peak:.2f} GB; chosen-alpha "
+        f"hash {alpha_hash(report)}, code-and-scale hash {code_hash(torch, qparams)}")
+    dec = stats["counters"]["tokens"]
+    log(f"ssm phase, serve: {len(outputs)} requests of {list(SSM_LENS)} prompt tokens x {GEN} "
+        f"in {serve_s:.2f} s ({SLOTS * GEN / serve_s:.1f} tok/s end to end); "
+        f"{stats['prefill_calls']} prefill calls in {stats['prefill_s']:.3f} s for "
+        f"{stats['prefill_tokens']} prompt tokens; decode {dec} tokens in "
+        f"{stats['decode_s']:.3f} s = {dec / stats['decode_s']:.1f} tok/s "
+        f"({stats['decode_s'] / stats['decode_steps'] * 1e3:.2f} ms a step of {SLOTS} slots); "
+        f"cache {stats['cache_bytes'] / 1e6:.1f} MB; launches {json.dumps(launches)}")
+    leaves = ["embed/embed", "embed/w_head", *(f"stack/L0/mamba/{k}" for k in
+                                                ("in_bc", "in_dt", "in_x", "in_z", "out_proj"))]
+    if sorted(report.per_leaf) != leaves or n != 5 * cfg.n_layers + 2:
+        raise AssertionError(f"ssm phase: quantized leaves {sorted(report.per_leaf)} "
+                             f"({n} leaf-layers), expected {leaves}")
+    passes = len(sweep_plan(1 + qcfg.n_coarse)) + len(sweep_plan(1 + qcfg.n_fine))
+    want = {"scale_search": passes * n, "fp8_quant": n,
+            **ssm_serve_launches(stats, cfg.n_layers)}
+    if stats["prefill_calls"] != len(set(SSM_LENS)):
+        raise AssertionError(f"ssm phase: {stats['prefill_calls']} prefill calls, expected "
+                             f"one per prompt length ({len(set(SSM_LENS))})")
+    for name, w in want.items():
+        if launches[name] != w:
+            raise AssertionError(f"ssm phase: {name} launched {launches[name]} times, "
+                                 f"expected {w}")
+    for out in outputs:
+        if len(out) != GEN or not all(0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"ssm phase: bad output row {out[:8]}... ({len(out)} tokens)")
+    for side in (report.global_chosen, report.global_default):
+        if not all(math.isfinite(v) for v in side.values()):
+            raise AssertionError(f"ssm phase: non-finite report metrics {side}")
+    leaf_sign_rates_hold(report, "ssm phase")
+    for name, k in launches.items():
+        if name in records:
+            records[name]["launches"] += k
+    log(f"ssm phase: launches asserted ({json.dumps(want)}); first row {outputs[0][:12]}...")
+    if not cuda:
+        return
+
+    ragged_leaf_checks(torch, post, base, qcfg)
+    del post, base, engine
+    torch.cuda.empty_cache()
+    from repro_torch.kernels.fp8_matmul.kernel import matmul_fp8_decode, matmul_fp8_wgmma
+    g = torch.Generator(device="cuda").manual_seed(seed + 9)
+    for K, N in ((1536, 256), (3072, 1536), (1536, 3072)):
+        timed = (K, N) == (3072, 1536)
+        check_matmul(torch, "fp8_matmul_decode", matmul_fp8_decode,
+                     MatmulCase(torch, g, SLOTS, K, N, timed=timed), time_it=timed)
+        check_matmul(torch, "fp8_matmul_wgmma", matmul_fp8_wgmma,
+                     MatmulCase(torch, g, 2 * SSM_LENS[0], K, N, timed=timed), time_it=timed)
+    same = torch.stack([r[:SSM_LENS[0]] for r in requests])
+    breakdowns(torch, model, qparams, same, tree=f"{cfg.name} ")
+    del qparams
+    torch.cuda.empty_cache()
+    ssm_small_agreement(torch, seed)
+
+
 def clone_tree(tree):
     if isinstance(tree, dict):
         return {k: clone_tree(v) for k, v in tree.items()}
@@ -2628,7 +2900,7 @@ def breakdowns(torch, model, qparams, prompts, steps: int = BREAKDOWN_STEPS, tre
         model.prefill(qparams, {"tokens": prompts})
         torch.cuda.synchronize()
 
-    device_breakdown(torch, f"prefill ({prompts.shape[0]} x {prompts.shape[1]} tokens)",
+    device_breakdown(torch, f"{tree}prefill ({prompts.shape[0]} x {prompts.shape[1]} tokens)",
                      prefill, 1, "prefill")
 
 
@@ -2833,8 +3105,10 @@ def main() -> int:
     prefix_phase(torch, args, model, qparams)
     log(f"prefix phase passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    spec = spec_phase(torch, args, model, post, qparams, prompts)
-    log(f"spec phase passed in {time.perf_counter() - t0:.1f} s")
+    spec = spec_phase(torch, args, *first_layers(model, min(SPEC_LAYERS, args.layers), post,
+                                                 qparams), prompts)
+    log(f"spec phase ({min(SPEC_LAYERS, args.layers)} layers) passed in "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     host_loop_phase(torch, model, qparams, prompts, daq_outputs)
     log(f"host-loop phase passed in {time.perf_counter() - t0:.1f} s")
@@ -2861,6 +3135,9 @@ def main() -> int:
     t0 = time.perf_counter()
     study_phase(torch)
     log(f"study phase passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    ssm_phase(torch, records, args.seed)
+    log(f"ssm phase passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     quantize_breakdown(torch, args.seed)
     log(f"quantize breakdown took {time.perf_counter() - t0:.1f} s")

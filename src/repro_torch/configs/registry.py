@@ -1,7 +1,8 @@
 """Architecture registry: ``get_arch(<id>)`` + reduced smoke configs.
 
-The port registers the architectures its model code runs (the dense family
-so far); ``reduced`` is the reference's rule for tiny same-family configs.
+The port registers the architectures its model code runs (the dense and SSM
+families so far); ``reduced`` is the reference's rule for tiny same-family
+configs.
 """
 from __future__ import annotations
 
@@ -9,8 +10,12 @@ import dataclasses
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.glm4_9b import CONFIG as _glm4
+from repro_torch.configs.mamba2_780m import CONFIG as _mamba2
 
-ARCHS: dict[str, ModelConfig] = {c.name: c for c in (_glm4,)}
+ARCHS: dict[str, ModelConfig] = {c.name: c for c in (_glm4, _mamba2)}
+
+# families whose model code the port runs (models/lm.py::layer_plan)
+PORTED_FAMILIES = ("dense", "ssm")
 
 
 def get_arch(name: str) -> ModelConfig:
@@ -22,8 +27,9 @@ def get_arch(name: str) -> ModelConfig:
 def reduced(cfg: ModelConfig, *, vocab: int = 512) -> ModelConfig:
     """A tiny config of the same family (same rule as ``repro.configs.reduced``
     for the families the port runs)."""
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
+                                  "(ROADMAP Queue A 5)")
     kw: dict = dict(
         name=cfg.name + "-smoke",
         n_layers=max(2, min(4, cfg.n_layers)),
@@ -31,10 +37,16 @@ def reduced(cfg: ModelConfig, *, vocab: int = 512) -> ModelConfig:
         vocab_size=vocab,
         d_ff=128 if cfg.d_ff else 0,
         head_dim=16,
-        n_heads=4,
-        n_kv_heads=max(1, min(2, cfg.n_kv_heads)),
         notes="reduced smoke config",
     )
+    if cfg.n_heads:
+        kw["n_heads"] = 4
+        kw["n_kv_heads"] = max(1, min(2, cfg.n_kv_heads))
+    if cfg.family == "ssm":
+        kw["ssm_state"] = 16
+        kw["d_inner"] = 128
+        kw["ssm_head_dim"] = 16
+        kw["ssm_chunk"] = 32
     if cfg.sliding_window:
         kw["sliding_window"] = 16
     return dataclasses.replace(cfg, **kw)

@@ -32,9 +32,19 @@ def tree_map(fn, tree: Any) -> Any:
     return fn(tree)
 
 
+# subtrees whose leaves carry a leading layer axis (``models/lm.py``)
+STACKED = ("stack/", "prefix/")
+
+
 def should_quantize(path: str, leaf: Any, skip_patterns=DEFAULT_SKIP,
                     min_dim: int = 16) -> bool:
+    """The reference's rule, read per layer for stacked leaves: a layer's
+    vector stacked into a matrix (Mamba's ``d_skip``, [n_layers, heads]) is
+    a vector, which the reference quantizes as a matrix when both axes
+    reach ``min_dim`` and then cannot serve (ROADMAP Queue C 23)."""
     if not hasattr(leaf, "ndim") or leaf.ndim < 2:
+        return False
+    if path.startswith(STACKED) and leaf.ndim < 3:
         return False
     low = path.lower()
     if any(pat in low for pat in skip_patterns):

@@ -11,8 +11,11 @@ fetched; everything per token lives on the device:
   tree in a single device-to-host transfer.
 * **prefill** — the free slots' pending prompts go through one right-padded
   ``model.prefill`` call and their cache rows are written into the live
-  cache in place.  When the whole pool is (re)filled at once the returned
-  cache simply replaces the live one.
+  cache in place.  Right-padding is exact only for a dense stack without a
+  sliding window (``_can_pad``): pad rows would enter an SSM layer's state,
+  so there each admission prefills one call per distinct prompt length.
+  When one call (re)fills the whole pool its returned cache simply
+  replaces the live one.
 * **sampling** — greedy / temperature / top-k / top-p via engine.sampler,
   drawing from one ``torch.Generator`` seeded per ``serve`` call.
 * **paged KV cache** — ``paged=True`` swaps the per-slot contiguous cache
@@ -134,6 +137,14 @@ class Engine:
             raise TypeError("pass either cfg= or keyword fields, not both")
         if cfg.k_steps < 1:
             raise ValueError(f"k_steps must be >= 1, got {cfg.k_steps}")
+        mcfg = model.cfg
+        if mcfg.family != "dense" and (cfg.paged or cfg.chunk_size or cfg.prefix_cache
+                                       or cfg.n_spec):
+            raise NotImplementedError(
+                f"family {mcfg.family!r} runs on the contiguous engine only: the paged, "
+                f"chunked, prefix-cached and speculative engines' SSM paths (per-slot SSM "
+                f"leaves, mamba_prefill_chunk, mamba_verify_chunk) are not ported yet "
+                f"(ROADMAP Queue A 5)")
         if (cfg.chunk_size or cfg.prefix_cache) and not cfg.paged:
             raise ValueError("chunk_size / prefix_cache need paged=True")
         if cfg.n_spec:
@@ -162,6 +173,10 @@ class Engine:
         self.metrics = metrics      # MetricsRegistry | None
         self.tracer = tracer        # Tracer | None
         self.cfg = cfg
+        # right-padded prefill is exact only for pure causal-attention stacks
+        # without a ring cache: pad rows never feed real rows there, while an
+        # SSM layer's state and conv history would take them in
+        self._can_pad = mcfg.family == "dense" and not mcfg.sliding_window
         self._mb = P.blocks_for(cfg.cache_len, cfg.block_size)       # blocks per slot
         # one flash tile shape for every prefill: a chunk's rows then give
         # the one-shot prefill's bits (PERF.md, decision a)
@@ -403,42 +418,60 @@ class Engine:
             f"spec counter leak: drafted {ctr['drafted']} != accepted {ctr['accepted']} + "
             f"rejected {ctr['rejected']}")
 
+    def _prefill_groups(self, lens: list[int]) -> list[list[int]]:
+        """Indices of the prompts each prefill call takes: all in one
+        right-padded call where padding is exact (``_can_pad``), else one
+        call per distinct length, in order of first appearance."""
+        if self._can_pad:
+            return [list(range(len(lens)))]
+        by_len: dict[int, list[int]] = {}
+        for i, L in enumerate(lens):
+            by_len.setdefault(L, []).append(i)
+        return list(by_len.values())
+
     def _admit(self, cache, state, free_slots, prompts, gen_tokens, gen):
-        """Prefill ``prompts`` into ``free_slots`` with one right-padded
-        prefill call (exact: the port's models are pure causal-attention
-        stacks, where pad rows never feed real rows).  Returns (cache, state,
-        first tokens as host ints)."""
+        """Prefill ``prompts`` into ``free_slots``, one call per group of
+        ``_prefill_groups``.  Returns (cache, state, first tokens as host
+        ints, prefill calls)."""
         cfg = self.cfg
         B = cfg.slots
         dev = self.model.device
         lens = [int(p.shape[0]) for p in prompts]
-        Lmax = max(lens)
-        toks = torch.stack([F.pad(p, (0, Lmax - L)) for p, L in zip(prompts, lens)])
-        glens = None if min(lens) == Lmax else \
-            torch.tensor(lens, dtype=torch.int32, device=dev)
-        logits, part = self.model.prefill(self.params, {"tokens": toks},
-                                          cache_len=self._group_cache_len(Lmax), lengths=glens,
-                                          tiles=self._tiles)
-        first = sample(logits, gen, cfg.sampling)
+        groups = self._prefill_groups(lens)
         rem0 = gen_tokens - 1
-        if cfg.paged:
-            # an over-long prompt keeps only its first capacity rows, as the
-            # contiguous cache does: debit exactly the blocks the scatter fills
-            counts = torch.tensor([min(P.blocks_for(L, cfg.block_size), self._mb)
-                                   for L in lens], dtype=torch.int32, device=dev)
-            cache, state = self._scatter_paged(
-                cache, state, part, torch.tensor(free_slots, device=dev),
-                torch.tensor(lens, dtype=torch.int32, device=dev), first, rem0, counts)
-        elif free_slots == list(range(B)):
-            # the whole pool refills at once: the prefill result IS the new cache
-            cache = part
-            state = {**state, "cur": first[:, None].clone(),
-                     "active": torch.full((B,), rem0 > 0, device=dev),
-                     "remaining": torch.full((B,), rem0, dtype=torch.int32, device=dev)}
-        else:
-            cache, state = self._scatter(cache, state, part,
-                                         torch.tensor(free_slots, device=dev), first, rem0)
-        return cache, state, [int(t) for t in first.tolist()]
+        firsts = [None] * len(prompts)
+        for g in groups:
+            glen = [lens[i] for i in g]
+            Lmax = max(glen)
+            toks = torch.stack([F.pad(prompts[i], (0, Lmax - lens[i])) for i in g])
+            glens = None if min(glen) == Lmax else \
+                torch.tensor(glen, dtype=torch.int32, device=dev)
+            logits, part = self.model.prefill(self.params, {"tokens": toks},
+                                              cache_len=self._group_cache_len(Lmax),
+                                              lengths=glens, tiles=self._tiles)
+            first = sample(logits, gen, cfg.sampling)
+            g_slots = [free_slots[i] for i in g]
+            if cfg.paged:
+                # an over-long prompt keeps only its first capacity rows, as
+                # the contiguous cache does: debit exactly the blocks the
+                # scatter fills
+                counts = torch.tensor([min(P.blocks_for(L, cfg.block_size), self._mb)
+                                       for L in glen], dtype=torch.int32, device=dev)
+                cache, state = self._scatter_paged(
+                    cache, state, part, torch.tensor(g_slots, device=dev),
+                    torch.tensor(glen, dtype=torch.int32, device=dev), first, rem0, counts)
+            elif g_slots == list(range(B)):
+                # one call refills the whole pool: its result IS the new cache
+                cache = part
+                state = {**state, "cur": first[:, None].clone(),
+                         "active": torch.full((B,), rem0 > 0, device=dev),
+                         "remaining": torch.full((B,), rem0, dtype=torch.int32, device=dev)}
+            else:
+                cache, state = self._scatter(cache, state, part,
+                                             torch.tensor(g_slots, device=dev), first, rem0)
+            for i, t in zip(g, first.tolist()):
+                firsts[i] = int(t)
+        return cache, state, firsts, len(groups)
 
     # -- chunked / prefix-cached admission ------------------------------------
 
@@ -777,16 +810,16 @@ class Engine:
             if rids:
                 t0 = time.perf_counter()
                 t0_us = tr.now_us() if tr else 0.0
-                cache, state, first = self._admit(
+                cache, state, first, ncalls = self._admit(
                     cache, state, take_slots, [requests[r] for r in rids],
                     gen_tokens, gen)
-                ta = time.perf_counter()    # after the first tokens' transfer
+                ta = time.perf_counter()    # after the first tokens' transfers
                 stats["prefill_s"] += ta - t0
                 if tr:
                     tr.complete("admission", f"admit x{len(rids)}", t0_us,
-                                {"requests": len(rids), "prefill_calls": 1})
-                stats["prefill_calls"] += 1
-                stats["host_syncs"] += 1
+                                {"requests": len(rids), "prefill_calls": ncalls})
+                stats["prefill_calls"] += ncalls
+                stats["host_syncs"] += ncalls
                 stats["tokens"] += len(rids)
                 stats["prefill_tokens"] += sum(int(requests[r].shape[0]) for r in rids)
                 for s, r, t in zip(take_slots, rids, first):

@@ -29,9 +29,11 @@ reference, with the same checks and messages, and one more, ``--device``
   model's vocabulary) and says so; ``--reduced`` (512 tokens) uses the
   full vocabulary, as the reference does.
 * **Not ported**: ``--mesh`` other than 0 (sharded serving, ROADMAP Queue
-  A 9) exits with a message; the reference's ``compiles:`` line (its jit
-  cache sizes) has no counterpart, since the port compiles nothing at serve
-  time.
+  A 9) exits with a message, and so do ``--paged`` (with ``--chunk-size``,
+  ``--prefix-cache``, ``--spec-draft``) on an SSM arch such as
+  ``mamba2-780m``, which serves on the contiguous engine only (ROADMAP
+  Queue A 5); the reference's ``compiles:`` line (its jit cache sizes) has
+  no counterpart, since the port compiles nothing at serve time.
 
 Usage (CPU-scale):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch glm4-9b --reduced \\
@@ -237,6 +239,12 @@ def main(argv: list[str] | None = None):
     if cfg.family in ("vlm", "encdec"):
         raise SystemExit("serve CLI drives LM-style archs; "
                          "vlm/encdec need modality inputs (see examples/)")
+    if cfg.family != "dense" and args.paged:
+        raise SystemExit(f"--paged: {cfg.name} (family {cfg.family!r}) serves on the "
+                         f"contiguous engine only; the paged, chunked, prefix-cached and "
+                         f"speculative engines' SSM paths are not ported yet (ROADMAP "
+                         f"Queue A 5): drop --paged, --chunk-size, --prefix-cache and "
+                         f"--spec-draft")
     model = build_model(cfg, device=args.device)
     dev = model.device
     params = model.init(torch.Generator(device=dev).manual_seed(0))

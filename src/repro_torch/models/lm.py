@@ -1,12 +1,17 @@
-"""Model assembly for the dense decoder family.
+"""Model assembly for the dense decoder and the Mamba-2 (SSM) families.
 
-Port of ``repro/models/lm.py`` (``family == "dense"``).  Params keep the
-reference's tree layout — per-layer leaves stacked on a leading
-``[n_layers, ...]`` axis under ``params["stack"]["L0"]`` — so a tree
-converted from the reference (``repro_torch.compat.params_from_jax``) loads
-directly.  Where the reference ``lax.scan``s over the stack, the port loops
-over layers in Python, slicing each layer's views out of the stacked
-leaves; decode caches are updated in place (the torch counterpart of the
+Port of ``repro/models/lm.py`` for ``family == "dense"`` and ``"ssm"``.
+Each family is the reference's layer plan (``layer_plan``): one
+``(mixer, ffn)`` spec repeated ``n_layers`` times, ``("attn", "mlp")`` for
+dense, ``("mamba", "none")`` for SSM.  Params keep the reference's tree
+layout — per-layer leaves stacked on a leading ``[n_layers, ...]`` axis
+under ``params["stack"]["L0"]`` (``stack/L0/mamba/in_z`` and so on) — so a
+tree converted from the reference (``repro_torch.compat.params_from_jax``)
+loads directly.  A layer's decode cache is K/V rows for attention and the
+recurrent state (``h``, ``conv_x``, ``conv_bc``, no sequence axis) for
+Mamba (``init_layer_cache``).  Where the reference ``lax.scan``s over the
+stack, the port loops over layers in Python, slicing each layer's views
+out of the stacked leaves; decode caches are updated in place (the torch counterpart of the
 reference's buffer donation).  The paged decode cache (``init_paged_cache``,
 ``decode_step_paged``) holds per-layer K/V block pools
 ``[n_layers, num_blocks + 1, block_size, Kv, hd]`` under
@@ -18,7 +23,9 @@ tokens (each row the decode step at its position, on the CPU bit for bit).
 ``run_stack_train`` is the full-sequence forward with no cache: the one
 calibration walks (``data/synthetic.py::_full_logits``) without grad, and
 the one ``Model.loss_fn`` trains through with grad, each layer under the
-reference's remat policies (``_remat``).
+reference's remat policies (``_remat``).  The paged, chunked and
+speculative forwards run the dense family only; an SSM model raises
+there (its state has no blocks to page, ROADMAP Queue A 5).
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
+from repro_torch.models import ssm as SSM
 from repro_torch.core.policy import tree_map
 from repro_torch.models.common import (apply_mlp, apply_norm, apply_rope, chunked_xent,
                                        embed_tokens, init_embed, init_mlp, init_norm,
@@ -50,14 +58,56 @@ def n_stacked(tree) -> int:
     return tree.shape[0]
 
 
-def init_layer(gen, cfg: ModelConfig, dtype, device) -> dict:
-    return {"ln1": init_norm(cfg, dtype, device),
-            "attn": A.init_attn(gen, cfg, dtype, device),
-            "ln2": init_norm(cfg, dtype, device),
-            "mlp": init_mlp(gen, cfg, cfg.d_ff, dtype, device)}
+LayerSpec = tuple[str, str]  # (mixer, ffn)
+ATTN_MLP: LayerSpec = ("attn", "mlp")
 
 
-def _init_stack(gen, cfg: ModelConfig, n: int, dtype, device) -> dict:
+def layer_plan(cfg: ModelConfig):
+    """(prefix_specs, n_prefix, period_specs, n_periods), as the reference's
+    ``layer_plan``, for the families the port runs."""
+    if cfg.family == "dense":
+        return [], 0, [ATTN_MLP], cfg.n_layers
+    if cfg.family == "ssm":
+        return [], 0, [("mamba", "none")], cfg.n_layers
+    raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP Queue A 5)")
+
+
+def init_layer(gen, cfg: ModelConfig, dtype, device, spec: LayerSpec) -> dict:
+    mixer, ffn = spec
+    p = {"ln1": init_norm(cfg, dtype, device)}
+    if mixer == "attn":
+        p["attn"] = A.init_attn(gen, cfg, dtype, device)
+    elif mixer == "mamba":
+        p["mamba"] = SSM.init_mamba(gen, cfg, dtype, device)
+    else:
+        raise ValueError(mixer)
+    if ffn == "mlp":
+        p["ln2"] = init_norm(cfg, dtype, device)
+        p["mlp"] = init_mlp(gen, cfg, cfg.d_ff, dtype, device)
+    elif ffn != "none":
+        raise ValueError(ffn)
+    return p
+
+
+def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, cache_len: int,
+                     device) -> dict:
+    """Zero decode cache of one layer: K/V rows for attention, the
+    recurrent state for Mamba (no sequence axis: ``cache_len`` unused)."""
+    if spec[0] == "mamba":
+        return SSM.init_mamba_cache(cfg, batch, device)
+    shape = (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"k": torch.zeros(shape, dtype=cache_dtype(), device=device),
+            "v": torch.zeros(shape, dtype=cache_dtype(), device=device)}
+
+
+def _ffn(p: dict, x, cfg: ModelConfig, spec: LayerSpec):
+    """The residual feed-forward half of a layer (none for Mamba layers)."""
+    if spec[1] == "none":
+        return x
+    return x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm_eps))
+
+
+def _init_stack(gen, cfg: ModelConfig, n: int, dtype, device, spec: LayerSpec) -> dict:
     """Stacked params ``{"L0": leaf[n, ...]}``, filled one layer at a time."""
     def alloc(t):
         return torch.empty((n,) + t.shape, dtype=t.dtype, device=t.device)
@@ -71,7 +121,7 @@ def _init_stack(gen, cfg: ModelConfig, n: int, dtype, device) -> dict:
 
     stack = None
     for i in range(n):
-        one = init_layer(gen, cfg, dtype, device)
+        one = init_layer(gen, cfg, dtype, device, spec)
         if stack is None:
             stack = tree_map(alloc, one)
         fill(stack, one, i)
@@ -92,10 +142,16 @@ def _attn_decode(p: dict, x, cache: dict, lengths, cfg: ModelConfig):
     return qlinear.matmul(out.reshape(B, 1, -1), p["wo"])
 
 
-def apply_layer_decode(p: dict, x, cache: dict, lengths, cfg: ModelConfig):
-    x = x + _attn_decode(p["attn"], apply_norm(p["ln1"], x, cfg.norm_eps), cache,
-                         lengths, cfg)
-    return x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm_eps))
+def apply_layer_decode(p: dict, x, cache: dict, lengths, cfg: ModelConfig,
+                       spec: LayerSpec):
+    """One decode step of a layer; its cache (views) is updated in place."""
+    h = apply_norm(p["ln1"], x, cfg.norm_eps)
+    if spec[0] == "mamba":
+        y, _ = SSM.mamba_decode(p["mamba"], h, cache, cfg)
+        x = x + y
+    else:
+        x = x + _attn_decode(p["attn"], h, cache, lengths, cfg)
+    return _ffn(p, x, cfg, spec)
 
 
 def _attn_decode_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelConfig):
@@ -197,12 +253,20 @@ def cow_copy_blocks(cache: dict, src: torch.Tensor, dst: torch.Tensor) -> dict:
     return cache
 
 
-def apply_layer_prefill(p: dict, x, cache: dict, cfg: ModelConfig, tiles=(0, 0)):
-    """Pre-norm residual layer over a whole prompt; writes the layer's K/V
-    into ``cache`` (views [B, cache_len, Kv, hd]) in place.  ``tiles`` are
-    the flash tiles ``(q_chunk, kv_chunk)``, 0 for the defaults."""
+def apply_layer_prefill(p: dict, x, cache: dict, cfg: ModelConfig, spec: LayerSpec,
+                        tiles=(0, 0)):
+    """Pre-norm residual layer over a whole prompt; writes the layer's
+    decode cache (views) in place: K/V rows [B, cache_len, Kv, hd] for
+    attention, the state after the prompt's last row for Mamba.  ``tiles``
+    are the flash tiles ``(q_chunk, kv_chunk)``, 0 for the defaults."""
     B, S, _ = x.shape
-    q, k, v = A.qkv_proj(p["attn"], apply_norm(p["ln1"], x, cfg.norm_eps), cfg)
+    h = apply_norm(p["ln1"], x, cfg.norm_eps)
+    if spec[0] == "mamba":
+        y, new = SSM.mamba_forward(p["mamba"], x, h, cfg)
+        for name, t in new.items():
+            cache[name].copy_(t)
+        return _ffn(p, x + y, cfg, spec)
+    q, k, v = A.qkv_proj(p["attn"], h, cfg)
     if cfg.rope_theta > 0:
         pos = torch.arange(S, device=x.device)[None]
         cos, sin = rope_cos_sin(pos, cfg.resolved_head_dim, cfg.rope_theta)
@@ -214,15 +278,19 @@ def apply_layer_prefill(p: dict, x, cache: dict, cfg: ModelConfig, tiles=(0, 0))
     sc = cache["k"].shape[1]
     cache["k"][:, :S] = k[:, :sc].to(cache["k"].dtype)
     cache["v"][:, :S] = v[:, :sc].to(cache["v"].dtype)
-    return x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm_eps))
+    return _ffn(p, x, cfg, spec)
 
 
-def apply_layer_train(p: dict, x, cfg: ModelConfig):
+def apply_layer_train(p: dict, x, cfg: ModelConfig, spec: LayerSpec):
     """Pre-norm residual layer over a whole sequence, no cache (the
-    reference's ``apply_layer_train`` for a dense layer; its auxiliary loss
-    is the MoE router's, 0 here)."""
-    x = x + A.self_attn_train(p["attn"], apply_norm(p["ln1"], x, cfg.norm_eps), cfg)
-    return x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm_eps))
+    reference's ``apply_layer_train`` for a dense or Mamba layer; its
+    auxiliary loss is the MoE router's, 0 here)."""
+    h = apply_norm(p["ln1"], x, cfg.norm_eps)
+    if spec[0] == "mamba":
+        x = x + SSM.mamba_train(p["mamba"], h, cfg)
+    else:
+        x = x + A.self_attn_train(p["attn"], h, cfg)
+    return _ffn(p, x, cfg, spec)
 
 
 def _layers(stack: dict, n: int) -> list:
@@ -270,26 +338,28 @@ def run_stack_train(stack: dict, x, cfg: ModelConfig, remat: str = "full"):
     reach the stacked leaves in the reference's ``[n_layers, ...]``
     layout; the forward's bits are the same either way."""
     n = n_stacked(stack)
+    spec = layer_plan(cfg)[2][0]
     if not torch.is_grad_enabled():
         for i in range(n):
-            x = apply_layer_train(layer_view(stack, i), x, cfg)
+            x = apply_layer_train(layer_view(stack, i), x, cfg, spec)
         return x
     layer = _remat(apply_layer_train, remat)
     for lp in _layers(stack, n):
-        x = layer(lp, x, cfg)
+        x = layer(lp, x, cfg, spec)
     return x
 
 
 class Model:
-    """Dense decoder: ``init``, ``loss_fn``, ``init_cache``, ``prefill``,
-    ``decode_step`` with the reference ``Model``'s signatures (a
-    ``torch.Generator`` in place of a PRNG key)."""
+    """Dense decoder or Mamba-2 stack: ``init``, ``loss_fn``,
+    ``init_cache``, ``prefill``, ``decode_step`` with the reference
+    ``Model``'s signatures (a ``torch.Generator`` in place of a PRNG key).
+    The paged forwards run the dense family only."""
 
     def __init__(self, cfg: ModelConfig, device=None):
-        if cfg.family != "dense":
-            raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
         if cfg.sliding_window:
-            raise NotImplementedError("sliding-window (ring) caches are not ported yet")
+            raise NotImplementedError("sliding-window (ring) caches are not ported yet "
+                                      "(ROADMAP Queue A 5)")
+        self.spec = layer_plan(cfg)[2][0]
         self.cfg = cfg
         self.device = get_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -297,15 +367,24 @@ class Model:
     def init(self, gen: torch.Generator) -> dict:
         cfg, dt, dev = self.cfg, self.dtype, self.device
         return {"embed": init_embed(gen, cfg, dt, dev),
-                "stack": _init_stack(gen, cfg, cfg.n_layers, dt, dev),
+                "stack": _init_stack(gen, cfg, cfg.n_layers, dt, dev, self.spec),
                 "final_norm": init_norm(cfg, dt, dev)}
+
+    def _dense_only(self, what: str) -> None:
+        """Refuse a paged forward on a stack it would misread: an SSM
+        model's state has no blocks (ROADMAP Queue A 5)."""
+        if self.spec != ATTN_MLP:
+            raise NotImplementedError(
+                f"{what} of family {self.cfg.family!r} is not ported yet: the paged, "
+                f"chunked and speculative engines' SSM paths (per-slot SSM leaves, "
+                f"mamba_prefill_chunk, mamba_verify_chunk) are ROADMAP Queue A 5")
 
     def loss_fn(self, params: dict, batch: dict, remat: str = "full"):
         """Mean next-token loss of ``batch`` (``tokens``, ``labels`` [B, S];
         labels < 0 ignored): embed -> stack (under ``remat``) -> final norm
         -> ``chunked_xent``.  Returns ``(loss, {"loss", "aux_loss",
         "accuracy", "n_tokens"})`` as 0-d fp32 tensors; ``aux_loss`` (the
-        MoE router's in the reference) is 0 for the dense family."""
+        MoE router's in the reference) is 0: the port has no MoE layer."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], batch["tokens"])
         x = run_stack_train(params["stack"]["L0"], x, cfg, remat=remat)
@@ -316,10 +395,12 @@ class Model:
                             "n_tokens": n_tok}
 
     def init_cache(self, batch: int, cache_len: int) -> dict:
-        cfg = self.cfg
-        shape = (cfg.n_layers, batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
-        z = lambda: torch.zeros(shape, dtype=cache_dtype(), device=self.device)
-        return {"stack": {"L0": {"k": z(), "v": z()}},
+        """Zero decode cache: each leaf of ``init_layer_cache`` stacked on a
+        leading layer axis under ``stack/L0``, and per-slot ``lengths``."""
+        one = init_layer_cache(self.cfg, self.spec, batch, cache_len, self.device)
+        stack = {k: torch.zeros((self.cfg.n_layers,) + v.shape, dtype=v.dtype,
+                                device=self.device) for k, v in one.items()}
+        return {"stack": {"L0": stack},
                 "lengths": torch.zeros(batch, dtype=torch.int32, device=self.device)}
 
     @torch.no_grad()
@@ -327,9 +408,11 @@ class Model:
                 lengths: torch.Tensor | None = None, tiles: tuple[int, int] = (0, 0)):
         """``batch["tokens"]`` [B, S] -> (last-token logits [B, V], cache).
         ``lengths`` [B] marks per-row true lengths of a right-padded batch
-        (exact for causal attention: pad rows never feed real rows);
-        ``tiles`` fixes the flash tiles (``A.chunked_attention``'s
-        ``q_chunk``, ``kv_chunk``; 0 for the defaults)."""
+        (exact for causal attention: pad rows never feed real rows; an SSM
+        state takes in the pad rows, so an SSM batch must be of one length,
+        as the engine's per-length groups are); ``tiles`` fixes the flash
+        tiles (``A.chunked_attention``'s ``q_chunk``, ``kv_chunk``; 0 for
+        the defaults)."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
@@ -338,7 +421,7 @@ class Model:
         stack = params["stack"]["L0"]
         for i in range(n_stacked(stack)):
             x = apply_layer_prefill(layer_view(stack, i), x,
-                                    layer_view(cache["stack"]["L0"], i), cfg, tiles)
+                                    layer_view(cache["stack"]["L0"], i), cfg, self.spec, tiles)
         x = apply_norm(params["final_norm"], x, cfg.norm_eps)
         logits = last_token_logits(params["embed"], x, lengths)
         cache["lengths"] = (torch.full((B,), S, dtype=torch.int32, device=tokens.device)
@@ -347,15 +430,16 @@ class Model:
 
     @torch.no_grad()
     def decode_step(self, params: dict, tokens: torch.Tensor, cache: dict):
-        """tokens [B, 1] -> (logits [B, V], cache with lengths + 1); the K/V
-        caches are written in place."""
+        """tokens [B, 1] -> (logits [B, V], cache with lengths + 1); the
+        layers' caches (K/V rows, SSM state) are written in place."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens)
         lengths = cache["lengths"]
         stack = params["stack"]["L0"]
         for i in range(n_stacked(stack)):
             x = apply_layer_decode(layer_view(stack, i), x,
-                                   layer_view(cache["stack"]["L0"], i), lengths, cfg)
+                                   layer_view(cache["stack"]["L0"], i), lengths, cfg,
+                                   self.spec)
         x = apply_norm(params["final_norm"], x, cfg.norm_eps)
         logits = lm_logits(params["embed"], x)[:, 0]
         return logits, {**cache, "lengths": lengths + 1}
@@ -368,6 +452,7 @@ class Model:
         ``engine/paged.py`` (one table of ``ceil(cache_len / block_size)``
         entries per slot, shared by every layer)."""
         from repro_torch.engine.paged import blocks_for, init_block_state
+        self._dense_only("init_paged_cache")
         cfg = self.cfg
         shape = (cfg.n_layers, num_blocks + 1, block_size, cfg.n_kv_heads,
                  cfg.resolved_head_dim)
@@ -387,6 +472,7 @@ class Model:
         (prefix caching) a write landing in a shared block pops a private
         copy first, and each layer copies the block's rows into it."""
         from repro_torch.engine.paged import BSTATE_KEYS, alloc_step
+        self._dense_only("decode_step_paged")
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens)
         lengths = cache["lengths"]
@@ -422,6 +508,7 @@ class Model:
         and the cache with the chunk's K/V written in place and ``lengths``
         advanced to ``start + valid``."""
         from repro_torch.engine.paged import BSTATE_KEYS, span_targets
+        self._dense_only("prefill_chunk_paged")
         cfg = self.cfg
         B, C = tokens.shape
         x = embed_tokens(params["embed"], tokens)
@@ -458,6 +545,7 @@ class Model:
         leaves the slot as it was; rows at or past ``valid[b]`` write
         nothing and give garbage logits."""
         from repro_torch.engine.paged import BSTATE_KEYS, span_targets
+        self._dense_only("verify_chunk_paged")
         cfg = self.cfg
         B, C = tokens.shape
         x = embed_tokens(params["embed"], tokens)

@@ -39,7 +39,8 @@ def test_importing_every_port_module_loads_no_reference_code():
               "repro_torch.launch.serve", "repro_torch.optim", "repro_torch.optim.adamw",
               "repro_torch.optim.compress", "repro_torch.launch.steps",
               "repro_torch.launch.train", "repro_torch.pipeline",
-              "repro_torch.pipeline.daq_study"):
+              "repro_torch.pipeline.daq_study", "repro_torch.models.ssm",
+              "repro_torch.configs.mamba2_780m"):
         assert m in mods, m
     code = (f"import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"

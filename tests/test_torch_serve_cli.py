@@ -281,3 +281,20 @@ def test_cli_flag_checks_equal_reference(monkeypatch, extra):
 def test_cli_sharded_serving_exits_with_a_message():
     with pytest.raises(SystemExit, match="sharded serving is not ported"):
         cli.main(SMALL + ["--mesh", "2"])
+
+
+def test_cli_serves_the_ssm_family_on_the_contiguous_engine(capsys):
+    """``--arch mamba2-780m --reduced --daq``: prompts crossing the reduced
+    config's SSD chunk of 32, one prefill call per admission (equal
+    lengths); the paged engines exit with a message."""
+    argv = ["--arch", "mamba2-780m", "--reduced", "--device", "cpu", "--requests", "3",
+            "--batch", "2", "--prompt-len", "40", "--gen", "4", "--k-steps", "2", "--daq"]
+    outs, stats = cli.main(argv)
+    text = capsys.readouterr().out
+    assert len(outs) == 3 and all(len(o) == 4 and all(0 <= t < 512 for t in o) for o in outs)
+    assert "method: daq" in text and "contiguous cache" in text
+    assert stats["prefill_calls"] == 2 and stats["counters"]["tokens"] == 9
+    for extra in (["--paged"], ["--paged", "--prefix-cache"], ["--paged", "--spec-draft", "daq"]):
+        flags = [a for a in argv if a != "--daq"] + extra
+        with pytest.raises(SystemExit, match="not ported yet.*Queue A 5"):
+            cli.main(flags)
