@@ -122,11 +122,14 @@ Phases:
      ``in_dt`` [1536,48] and the embedding [50280,1536]), then 8 greedy
      requests of four lengths above the SSD chunk of 256 (300 to 1,000
      tokens), 64 tokens each, through ``Engine(slots=8, k_steps=8)``: one
-     prefill call per length, the decode route 4 x 48 launches a decode
-     step, the wgmma route 4 x 48 a prefill call, the CUDA-core route none
-     (``in_dt`` and the LM head are ragged: dequantize and
-     ``torch.matmul``); the two tensor-core routes against their plain
-     versions at [1536,256] and [3072,1536]; tok/s, prefill seconds and one
+     prefill call per length, the decode route 5 x 48 + 1 launches a
+     decode step and 1 a prefill call, the wgmma route 5 x 48 a prefill
+     call, the CUDA-core route none (the ragged ``in_dt`` and LM head
+     multiply through their zero-padded block grids,
+     ``ragged_product_checks``); the two tensor-core routes against their
+     plain versions at [1536,256], [3072,1536] and the two grids, the
+     decode route at [3072,1536] timed again (``repeat_timing``); tok/s,
+     prefill seconds and one
      decode step broken down; a small bf16 SSM model's card run against
      its CPU run (``ssm_small_agreement``);
   8. break one decode step, one prefill and one quantize (GLM-4-9B cut to
@@ -642,16 +645,15 @@ def check_nonfinite(torch) -> None:
 COLD_BYTES = 128 << 20   # weight copies rotated per timing: well over the 50 MB L2
 
 
-def device_ms(torch, calls, reps: int = 24) -> float:
-    """Mean device time of one call, in ms, with cold weights.
-
-    ``calls`` are zero-argument callables, each on its own copy of the
-    weights (together over ``COLD_BYTES``), launched in turn, so no launch
-    finds its weights in the L2.  The time is the sum of the durations of
-    every kernel the calls launch (a split product's second pass included),
-    from ``torch.profiler``'s device events: no host issue time.  If the
-    profiler sees no device events, the calls are captured in a CUDA graph
-    and its replay timed with CUDA events instead."""
+def device_times(torch, calls, reps: int = 24) -> tuple[float, float]:
+    """(profiler ms, replay ms): the mean time of one call by
+    ``torch.profiler``'s device events (the sum of every kernel's duration,
+    a split product's second pass included: no host issue time) and by CUDA
+    events around a CUDA-graph replay of the same launches (kernels and the
+    gaps between them).  ``calls`` are zero-argument callables, each on its
+    own copy of the weights (together over ``COLD_BYTES``), launched in
+    turn, ``reps`` launches at least, so no launch finds its weights in the
+    L2."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -663,10 +665,8 @@ def device_ms(torch, calls, reps: int = 24) -> float:
         for i in range(n):
             calls[i % len(calls)]()
         torch.cuda.synchronize()
-    us = sum(e.time_range.elapsed_us() for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    if us > 0:
-        return us / 1e3 / n
+    prof_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA) / 1e3 / n
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for i in range(n):
@@ -679,7 +679,23 @@ def device_ms(torch, calls, reps: int = 24) -> float:
     graph.replay()
     b.record()
     b.synchronize()
-    return a.elapsed_time(b) / n
+    return prof_ms, a.elapsed_time(b) / n
+
+
+def device_ms(torch, calls, reps: int = 24) -> float:
+    """Mean device time of one call, in ms, with cold weights: the
+    profiler's time of ``device_times``, unless it is under half the
+    replay's (or none).  Late in a long process the profiler has lost most
+    of a window's kernels (an LM head product read at 0.0017 ms, under its
+    0.0236 ms bound); then the replay's time is kept, with a line that
+    says so."""
+    prof_ms, replay_ms = device_times(torch, calls, reps)
+    if prof_ms >= 0.5 * replay_ms:
+        return prof_ms
+    log(f"device_ms: the profiler read {prof_ms:.5f} ms a call, under half the "
+        f"{replay_ms:.5f} ms of a CUDA-graph replay timed by CUDA events: it lost "
+        f"kernels; the replay's time is kept")
+    return replay_ms
 
 
 def finite_e4m3_codes(torch, K: int, N: int):
@@ -2603,16 +2619,63 @@ def sync(torch, device) -> None:
 
 
 def ssm_serve_launches(stats: dict, n_layers: int) -> dict:
-    """The fp8 routes' launches a bf16 serve of a Mamba-2 tree makes: four
-    block-128 products a layer (``in_z``, ``in_x``, ``in_bc``,
-    ``out_proj``), prefill rows on the wgmma route and decode rows on the
-    decode route; ``in_dt`` [D, heads] and the LM head [D, 50280] are
-    ragged, so they dequantize and take ``torch.matmul``
-    (``qlinear._fused_kernel_applies``), and nothing takes the CUDA-core
-    route."""
-    return {"fp8_matmul_wgmma": 4 * n_layers * stats["prefill_calls"],
-            "fp8_matmul_decode": 4 * n_layers * stats["decode_steps"],
+    """The fp8 routes' launches a bf16 serve of a Mamba-2 tree makes: five
+    block-128 products a layer (``in_z``, ``in_x``, ``in_bc``, ``in_dt``,
+    ``out_proj``; the ragged ``in_dt`` [D, heads] through its zero-padded
+    block grid), prefill rows on the wgmma route and decode rows on the
+    decode route, and the LM head [D, 50280] (its grid 50,304 wide) on the
+    decode route once a decode step and once a prefill call (one row per
+    request, fewer than ``TC_MIN_ROWS``); nothing on the CUDA-core route."""
+    return {"fp8_matmul_wgmma": 5 * n_layers * stats["prefill_calls"],
+            "fp8_matmul_decode": (5 * n_layers + 1) * stats["decode_steps"]
+            + stats["prefill_calls"],
             "fp8_matmul": 0}
+
+
+def ragged_product_checks(torch, qparams, g) -> None:
+    """The fused matmul on the two ragged quantized leaves of the Mamba-2
+    tree through their zero-padded block grids: ``in_dt`` of layer 0
+    [1536,48] (grid [1536,128]) at a decode step's and a prefill call's
+    rows, and the LM head [1536,50280] (grid [1536,50304]) at a decode
+    step's rows.  The kernel's fp32 product on the grid, cut to the
+    leaf's columns, is held against x @ the unpadded leaf dequantized in
+    fp32 (``check_matmul``'s tolerance), and the wrapper's bf16 output must
+    be that product's bf16 cast, bit for bit."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.granularity import dequantize_stored
+    from repro_torch.kernels.fp8_matmul.kernel import route
+    from repro_torch.kernels.fp8_matmul.ops import matmul_fp8, matmul_fp8_2d
+    for name, qt, rows in (("in_dt", qparams["stack"]["L0"]["mamba"]["in_dt"].layer(0),
+                            (SLOTS, 2 * SSM_LENS[0])),
+                           ("LM head", qparams["embed"]["w_head"], (SLOTS,))):
+        K, N = qt.shape
+        w = dequantize_stored(qt.data, qt.scale, "block", get_format(qt.fmt), qt.block_size,
+                              torch.float32)
+        for M in rows:
+            x = torch.randn((M, K), generator=g, device="cuda").bfloat16()
+            yk = matmul_fp8_2d(x, qt.grid, qt.scale[:, 0, :, 0])[:, :N]
+            yw = matmul_fp8(x, qt)
+            yp = x.float() @ w
+            torch.cuda.synchronize()
+            err = (yk - yp).abs()
+            ok = bool(torch.isfinite(yk).all()) and bool(
+                (err <= 1e-4 * yp.abs() + 1e-5 * yp.abs().max()).all()) \
+                and torch.equal(yw, yk.bfloat16())
+            log(f"kernel-check ragged {name} M={M} [{K},{N}] on its grid "
+                f"{list(qt.grid.shape)} ({route(M, qt.grid.shape[1], K, 128, x.dtype)} "
+                f"route): max |err| {float(err.max()):.3e} -> {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"the fp8 matmul disagrees on the ragged {name} at M={M}")
+
+
+def repeat_timing(torch, name: str, run, case) -> None:
+    """``device_times`` of ``run`` on ``case`` again, with eight launches on
+    each weight copy: the profiler's time beside the graph replay's."""
+    calls = case.calls(run)
+    prof_ms, replay_ms = device_times(torch, calls, reps=8 * len(calls))
+    log(f"timing repeat {name} M={case.M} [{case.K},{case.N}]: {len(calls)} weight copies, "
+        f"{8 * len(calls)} launches: profiler device time {prof_ms:.5f} ms a call; CUDA "
+        f"events over a graph replay {replay_ms:.5f} ms a call")
 
 
 def ragged_leaf_checks(torch, post, base, qcfg) -> None:
@@ -2725,12 +2788,16 @@ def ssm_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
     from repro_torch.configs import QuantConfig, get_arch
     from repro_torch.engine import Engine
     from repro_torch.kernels._lib import KERNELS
+    from repro_torch.kernels.fp8_matmul.kernel import TC_MIN_ROWS
     from repro_torch.kernels.scale_search.kernel import sweep_plan
     from repro_torch.models import build_model
     from repro_torch.quantize import quantize
 
     cuda = torch.device(device).type == "cuda"
     cfg = get_arch("mamba2-780m")
+    if SLOTS >= TC_MIN_ROWS:
+        raise AssertionError("ssm_serve_launches counts a prefill's LM head on the decode "
+                             f"route: SLOTS must stay below {TC_MIN_ROWS}")
     log(f"ssm phase: {cfg.name} d_model={cfg.d_model} d_inner={cfg.resolved_d_inner} "
         f"heads={cfg.n_ssm_heads}x{cfg.ssm_head_dim} state={cfg.ssm_state} "
         f"chunk={cfg.ssm_chunk} vocab={cfg.vocab_size} layers={cfg.n_layers} "
@@ -2811,12 +2878,25 @@ def ssm_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
     torch.cuda.empty_cache()
     from repro_torch.kernels.fp8_matmul.kernel import matmul_fp8_decode, matmul_fp8_wgmma
     g = torch.Generator(device="cuda").manual_seed(seed + 9)
-    for K, N in ((1536, 256), (3072, 1536), (1536, 3072)):
-        timed = (K, N) == (3072, 1536)
-        check_matmul(torch, "fp8_matmul_decode", matmul_fp8_decode,
-                     MatmulCase(torch, g, SLOTS, K, N, timed=timed), time_it=timed)
-        check_matmul(torch, "fp8_matmul_wgmma", matmul_fp8_wgmma,
-                     MatmulCase(torch, g, 2 * SSM_LENS[0], K, N, timed=timed), time_it=timed)
+    ragged_product_checks(torch, qparams, g)
+    for K, N in ((1536, 256), (3072, 1536), (1536, 3072), (1536, 128), (1536, 50304)):
+        timed = (K, N) in ((3072, 1536), (1536, 128), (1536, 50304))
+        dec = MatmulCase(torch, g, SLOTS, K, N, timed=timed)
+        check_matmul(torch, "fp8_matmul_decode", matmul_fp8_decode, dec, time_it=timed)
+        if (K, N) == (3072, 1536):
+            repeat_timing(torch, "fp8_matmul_decode", matmul_fp8_decode, dec)
+        del dec
+        if N != 50304:      # the LM head runs on the last token of each row only
+            check_matmul(torch, "fp8_matmul_wgmma", matmul_fp8_wgmma,
+                         MatmulCase(torch, g, 2 * SSM_LENS[0], K, N, timed=timed),
+                         time_it=timed)
+    head = qparams["embed"]["w_head"]
+    x = torch.randn((SLOTS, head.shape[0]), generator=g, device="cuda").bfloat16()
+    prof_ms, replay_ms = device_times(
+        torch, [lambda: torch.matmul(x, head.dequantize().to(x.dtype))])
+    log(f"ssm phase: the LM head's product by dequantize + torch.matmul (the path before "
+        f"its block grid): {prof_ms:.4f} ms a decode step by the profiler, {replay_ms:.4f} "
+        f"ms by CUDA events over a graph replay")
     same = torch.stack([r[:SSM_LENS[0]] for r in requests])
     breakdowns(torch, model, qparams, same, tree=f"{cfg.name} ")
     del qparams

@@ -32,8 +32,8 @@ def tree_map(fn, tree: Any) -> Any:
     return fn(tree)
 
 
-# subtrees whose leaves carry a leading layer axis (``models/lm.py``)
-STACKED = ("stack/", "prefix/")
+# the subtree whose leaves carry a leading layer axis (``models/lm.py``)
+STACKED = "stack/"
 
 
 def should_quantize(path: str, leaf: Any, skip_patterns=DEFAULT_SKIP,

@@ -126,6 +126,19 @@ def _tensor_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
+def refuse_unported(mcfg, cfg: EngineConfig) -> None:
+    """Raise NotImplementedError for an engine mode the model's family does
+    not run yet: every family but ``dense`` serves on the contiguous engine
+    only."""
+    if mcfg.family != "dense" and (cfg.paged or cfg.chunk_size or cfg.prefix_cache
+                                   or cfg.n_spec):
+        raise NotImplementedError(
+            f"family {mcfg.family!r} runs on the contiguous engine only: the paged, "
+            f"chunked, prefix-cached and speculative engines' SSM paths (per-slot SSM "
+            f"leaves, mamba_prefill_chunk, mamba_verify_chunk) are not ported yet "
+            f"(ROADMAP Queue A 5)")
+
+
 class Engine:
     """Continuous-batching serving engine over a built :class:`Model`."""
 
@@ -138,13 +151,7 @@ class Engine:
         if cfg.k_steps < 1:
             raise ValueError(f"k_steps must be >= 1, got {cfg.k_steps}")
         mcfg = model.cfg
-        if mcfg.family != "dense" and (cfg.paged or cfg.chunk_size or cfg.prefix_cache
-                                       or cfg.n_spec):
-            raise NotImplementedError(
-                f"family {mcfg.family!r} runs on the contiguous engine only: the paged, "
-                f"chunked, prefix-cached and speculative engines' SSM paths (per-slot SSM "
-                f"leaves, mamba_prefill_chunk, mamba_verify_chunk) are not ported yet "
-                f"(ROADMAP Queue A 5)")
+        refuse_unported(mcfg, cfg)
         if (cfg.chunk_size or cfg.prefix_cache) and not cfg.paged:
             raise ValueError("chunk_size / prefix_cache need paged=True")
         if cfg.n_spec:

@@ -24,11 +24,19 @@ def matmul_fp8_2d(x: torch.Tensor, wq: torch.Tensor, scales: torch.Tensor, *,
 
 
 def matmul_fp8(x: torch.Tensor, qt) -> torch.Tensor:
-    """x [..., K] @ QuantizedTensor(block) -> [..., N] in x.dtype."""
+    """x [..., K] @ QuantizedTensor(block) -> [..., N] in x.dtype.
+
+    A ragged weight multiplies through its zero-padded block grid
+    (``qt.grid``): x gains zero columns up to the grid's rows when K is
+    ragged, and the grid's extra output columns are dropped."""
     scales = qt.scale
     if scales.ndim == 4:      # [K/bs, 1, N/bs, 1] broadcast layout
         scales = scales[:, 0, :, 0]
+    K, N = qt.shape
+    wq = qt.data if qt.grid is None else qt.grid
     lead = x.shape[:-1]
-    out = matmul_fp8_2d(x.reshape(-1, x.shape[-1]), qt.data, scales,
-                        block=qt.block_size)
-    return out.reshape(*lead, out.shape[-1]).to(x.dtype)
+    x2 = x.reshape(-1, K)
+    if wq.shape[0] != K:
+        x2 = torch.nn.functional.pad(x2, (0, wq.shape[0] - K))
+    out = matmul_fp8_2d(x2, wq, scales, block=qt.block_size)
+    return out[:, :N].to(x.dtype).reshape(*lead, N)

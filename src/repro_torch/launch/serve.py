@@ -59,7 +59,8 @@ from repro_torch.configs import QuantConfig, get_arch
 from repro_torch.configs import reduced as reduce_cfg
 from repro_torch.core.policy import tree_map
 from repro_torch.data import LanguageSpec, sample_batch
-from repro_torch.engine import Engine, SamplingParams
+from repro_torch.engine import Engine, EngineConfig, SamplingParams
+from repro_torch.engine.engine import refuse_unported
 from repro_torch.models import build_model
 
 # the largest synthetic-language vocabulary the CLI builds: its [V, V]
@@ -239,12 +240,23 @@ def main(argv: list[str] | None = None):
     if cfg.family in ("vlm", "encdec"):
         raise SystemExit("serve CLI drives LM-style archs; "
                          "vlm/encdec need modality inputs (see examples/)")
-    if cfg.family != "dense" and args.paged:
-        raise SystemExit(f"--paged: {cfg.name} (family {cfg.family!r}) serves on the "
-                         f"contiguous engine only; the paged, chunked, prefix-cached and "
-                         f"speculative engines' SSM paths are not ported yet (ROADMAP "
-                         f"Queue A 5): drop --paged, --chunk-size, --prefix-cache and "
-                         f"--spec-draft")
+    cache_len = args.prompt_len + args.gen + 8
+    if args.temperature <= 0 and args.top_k == 0 and args.top_p >= 1.0:
+        sp = SamplingParams()                        # greedy
+    else:  # any flag alone enables sampling (temperature defaults to 1)
+        sp = SamplingParams(greedy=False,
+                            temperature=args.temperature if args.temperature > 0 else 1.0,
+                            top_k=args.top_k, top_p=args.top_p)
+    ecfg = EngineConfig(slots=args.batch, cache_len=cache_len, k_steps=args.k_steps,
+                        sampling=sp, paged=args.paged, block_size=args.block_size,
+                        num_blocks=args.num_blocks, chunk_size=args.chunk_size,
+                        prefix_cache=args.prefix_cache,
+                        n_spec=args.n_spec if args.spec_draft else 0,
+                        spec_dynamic=not args.spec_static)
+    try:                    # before any weights are made or quantized
+        refuse_unported(cfg, ecfg)
+    except NotImplementedError as e:
+        raise SystemExit(f"{cfg.name}: {e}")
     model = build_model(cfg, device=args.device)
     dev = model.device
     params = model.init(torch.Generator(device=dev).manual_seed(0))
@@ -273,25 +285,11 @@ def main(argv: list[str] | None = None):
         print(report.summary())
     prompts = [sample_batch(torch.Generator(device=dev).manual_seed(i), spec, 1,
                             args.prompt_len, device=dev)[0] for i in range(args.requests)]
-    cache_len = args.prompt_len + args.gen + 8
 
-    if args.temperature <= 0 and args.top_k == 0 and args.top_p >= 1.0:
-        sp = SamplingParams()                        # greedy
-    else:  # any flag alone enables sampling (temperature defaults to 1)
-        sp = SamplingParams(greedy=False,
-                            temperature=args.temperature if args.temperature > 0 else 1.0,
-                            top_k=args.top_k, top_p=args.top_p)
     from repro_torch.telemetry import MetricsRegistry, Tracer
     reg = MetricsRegistry()
     tracer = Tracer() if args.trace_out else None
-    eng = Engine(model, params, slots=args.batch, cache_len=cache_len,
-                 k_steps=args.k_steps, sampling=sp,
-                 paged=args.paged, block_size=args.block_size,
-                 num_blocks=args.num_blocks, chunk_size=args.chunk_size,
-                 prefix_cache=args.prefix_cache,
-                 n_spec=args.n_spec if args.spec_draft else 0,
-                 spec_dynamic=not args.spec_static,
-                 draft_params=draft_params, metrics=reg, tracer=tracer)
+    eng = Engine(model, params, ecfg, draft_params=draft_params, metrics=reg, tracer=tracer)
 
     t0 = time.time()
     outs, stats = eng.serve(prompts, gen_tokens=args.gen, return_stats=True)

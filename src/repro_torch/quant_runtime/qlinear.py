@@ -2,12 +2,13 @@
 
 Port of ``repro/quant_runtime/qlinear.py``.  Every matmul of the model code
 routes through :func:`matmul`, so a weight leaf may be a dense tensor or a
-:class:`QuantizedTensor`.  A 2-D block-granularity E4M3 weight whose edges
-are block multiples goes to the fused dequant-matmul (``kernels.fp8_matmul``:
-the CUDA kernel on the GPU, its plain version on the CPU); every other
-quantized weight is dequantized and multiplied.  The block-scale kernel is
-never handed a channel- or tensor-granularity tensor, nor an equalized one
-(its ``eq_scale`` divides the dequantized rows, which the kernel does not).
+:class:`QuantizedTensor`.  A 2-D block-granularity E4M3 weight goes to the
+fused dequant-matmul (``kernels.fp8_matmul``: the CUDA kernel on the GPU,
+its plain version on the CPU; a ragged one through its zero-padded block
+grid); every other quantized weight is dequantized and multiplied.  The
+block-scale kernel is never handed a channel- or tensor-granularity
+tensor, nor an equalized one (its ``eq_scale`` divides the dequantized
+rows, which the kernel does not).
 """
 from __future__ import annotations
 
@@ -43,8 +44,7 @@ def resolve(w):
 
 def _fused_kernel_applies(w: QuantizedTensor) -> bool:
     return (w.ndim == 2 and w.granularity == "block" and w.fmt == "fp8_e4m3"
-            and w.eq_scale is None
-            and w.shape[0] % w.block_size == 0 and w.shape[1] % w.block_size == 0)
+            and w.eq_scale is None)
 
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:

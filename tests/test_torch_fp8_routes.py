@@ -7,8 +7,10 @@ to the CUDA-core kernel; all compute the function of the reference's
 ``matmul_fp8_pallas``, whose plain version serves CPU tensors.  The kernels
 run only on the card (``chip_smoke.py`` holds each against the plain
 version there); here: the route table and the route of every product of a
-prefill and a decode step, the plain version against the Pallas kernel on
-both sides of the route's threshold (rtol 1e-5, atol 1e-4, the reference's
+prefill and a decode step (a Mamba-2 model's ragged leaves through their
+zero-padded block grids, whose products equal the unpadded ones), the
+plain version against the Pallas kernel on both sides of the route's
+threshold (rtol 1e-5, atol 1e-4, the reference's
 own kernel-test tolerance), each wrapper's operand checks as a pure
 function of shapes, strides and pointers, the decode route's split plan,
 and the build cache's key.
@@ -133,6 +135,85 @@ def test_chunk_substep_routes_by_slots_times_chunk(monkeypatch, slots, chunk, wa
     seen.clear()
     model.decode_step_paged(qparams, tokens[:, :1], cache, cow=True)
     assert seen == ["decode"] * (7 * cfg.n_layers + 1)
+
+
+def test_ssm_products_all_take_the_tensor_core_routes(monkeypatch):
+    """A Mamba-2-shaped model whose ``in_dt`` [256, 16] and LM head
+    [256, 1000] are ragged: each multiplies through its zero-padded block
+    grid, so a prefill routes each layer's five products to wgmma and its
+    last-token LM head to the decode route, and a decode step all 5L + 1 to
+    the decode route; every weight the kernels see is whole blocks."""
+    cfg = dataclasses.replace(get_arch("mamba2-780m"), n_layers=2, d_model=256, d_inner=512,
+                              ssm_head_dim=32, ssm_state=64, ssm_chunk=32, vocab_size=1000)
+    model = build_model(cfg, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    post = model.init(g)
+    qparams, _ = quantize(post, post, QuantConfig(), mode="storage")
+    assert qparams["stack"]["L0"]["mamba"]["in_dt"].grid.shape == (2, 256, 128)
+    assert qparams["embed"]["w_head"].grid.shape == (256, 1024)
+    seen = []
+    real = TMM.matmul_fp8_2d
+
+    def spy(x, wq, scales, *, block=128):
+        assert wq.shape[0] % 128 == 0 and wq.shape[1] % 128 == 0 and wq.is_contiguous()
+        seen.append(route(x.shape[0], wq.shape[1], wq.shape[0], block, x.dtype))
+        return real(x, wq, scales, block=block)
+
+    monkeypatch.setattr(TMM, "matmul_fp8_2d", spy)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), generator=g)
+    _, cache = model.prefill(qparams, {"tokens": tokens}, cache_len=48)
+    assert seen == ["wgmma"] * (5 * cfg.n_layers) + ["decode"]
+    seen.clear()
+    model.decode_step(qparams, tokens[:, :1], cache)
+    assert seen == ["decode"] * (5 * cfg.n_layers + 1)
+
+
+@pytest.mark.parametrize("K_,N,M", [(256, 48, 8), (256, 1000, 40), (200, 300, 3),
+                                    (64, 512, 17)])
+def test_ragged_product_on_the_grid_equals_the_unpadded_product(K_, N, M):
+    """``matmul_fp8`` of a ragged block leaf (N, K or both off the block
+    grid): zero codes pad the grid, x gains zero columns for a ragged K,
+    the grid's extra columns are dropped; the result equals x @ the
+    unpadded leaf dequantized in fp32, to the fp32 sum's reordering."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.granularity import dequantize_stored
+    from repro_torch.quant_runtime.qparams import QuantizedTensor
+    rng = np.random.default_rng(K_ + N + M)
+    w = torch.from_numpy((rng.standard_normal((K_, N)) * 0.05).astype(np.float32))
+    q, s = ref_quantize_fp8(w.numpy())
+    t = lambda a: tensor_from_numpy(np.asarray(jax.device_get(a)))
+    qt = QuantizedTensor(t(q), t(s)[:, None, :, None])
+    assert qt.shape == (K_, N) and qt.grid.shape == (-(-K_ // 128) * 128, -(-N // 128) * 128)
+    x = torch.from_numpy(rng.standard_normal((M, K_)).astype(np.float32)).bfloat16()
+    want = x.float() @ dequantize_stored(qt.data, qt.scale, "block", get_format("fp8_e4m3"),
+                                         128, torch.float32)
+    got = TMM.matmul_fp8(x.float(), qt)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    assert torch.equal(TMM.matmul_fp8(x, qt), got.bfloat16())
+
+
+def test_ragged_block_grid_is_made_once_and_shared_by_layer_views():
+    """A stacked ragged leaf pads once: ``data`` is a view of ``grid``
+    (zero codes past the edges), ``layer(i)`` views both without a copy,
+    and a ``dataclasses.replace`` with new data (a device move) remakes the
+    grid from it.  A leaf on whole blocks has no grid."""
+    from repro_torch.quant_runtime.qparams import QuantizedTensor
+    codes = torch.arange(3 * 200 * 48, dtype=torch.int32).remainder(120).to(torch.uint8)
+    data = codes.view(torch.float8_e4m3fn).reshape(3, 200, 48)
+    qt = QuantizedTensor(data, torch.ones(3, 2, 1, 1, 1))
+    assert qt.grid.shape == (3, 256, 128) and qt.shape == (3, 200, 48)
+    assert torch.equal(qt.data.view(torch.uint8), data.view(torch.uint8))
+    pad = qt.grid.view(torch.uint8).clone()
+    pad[:, :200, :48] = 0
+    assert not pad.any()
+    lay = qt.layer(1)
+    assert lay.grid.data_ptr() == qt.grid[1].data_ptr()
+    assert lay.data.data_ptr() == lay.grid.data_ptr()
+    moved = dataclasses.replace(qt, data=qt.data.clone())
+    assert moved.grid.data_ptr() != qt.grid.data_ptr()
+    assert torch.equal(moved.grid.view(torch.uint8), qt.grid.view(torch.uint8))
+    assert torch.equal(moved.dequantize(), qt.dequantize())
+    assert QuantizedTensor(qt.grid, torch.ones(3, 2, 1, 1, 1)).grid is None
 
 
 @pytest.mark.parametrize("M", [TC_MIN_ROWS - 1, TC_MIN_ROWS, 130])
