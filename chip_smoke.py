@@ -132,6 +132,26 @@ Phases:
      prefill seconds and one
      decode step broken down; a small bf16 SSM model's card run against
      its CPU run (``ssm_small_agreement``);
+  7k. the MoE family (``moe_phase``, after 7j): DeepSeek-V3 at full width
+     (d_model 7168, 256 experts of 2,048 top-8 and a shared one, vocab
+     129,280) cut to its 3 dense-prefix layers and 1 MoE layer, seeded
+     bf16 weights quantized in two subtrees (``{embed, final_norm,
+     prefix}``, then ``{stack}``, each base made just before: the whole
+     pair would not fit the card beside the fp8 tree), the sweep's and the
+     quantizer's launches asserted from the tree (each of the 768 experts
+     a matrix), then 8 greedy requests of 128 / 256 / 384 / 512 tokens, 32
+     each, through ``Engine(slots=8, k_steps=8)``: 4 prefill calls, the
+     wgmma route 7 x 4 launches a prefill call, the decode route 7 x 4 + 1
+     a decode step and 1 a prefill call, the CUDA-core route none (the
+     expert stacks are dequantized and multiplied by ``torch.matmul``, as
+     the reference's are); assignments dropped by capacity; the stacked
+     dequantize's bits against the per-matrix one; both tensor-core routes
+     at the layer's five widths and M = 8 and 512, the sweep and the
+     quantizer at [7168,2048], all against their plain versions and
+     timed; a decode step and a prefill broken down; a small float32 MoE
+     model on fp32 activations, card against CPU: routing equal, logits
+     within 1e-3 of their scale, greedy tokens equal
+     (``moe_small_agreement``);
   8. break one decode step, one prefill and one quantize (GLM-4-9B cut to
      4 layers at full width) down: host time, device busy time, kernel
      launches, the decode route's device time and the kernels that take
@@ -198,6 +218,12 @@ STUDY_STEPS = (600, 350)
 # the SSM phase: Mamba2-780M's 8 requests, four lengths above its SSD chunk
 # of 256 and none a multiple of it (a ragged last chunk), 64 tokens each
 SSM_LENS = (300, 300, 520, 520, 700, 700, 1000, 1000)
+# the MoE phase: DeepSeek-V3 at full width cut to its 3 dense-prefix layers
+# and 1 MoE layer (61 layers would hold ~660 B parameters); 8 requests of
+# four lengths (one prefill call each), 32 tokens each
+MOE_LAYERS = 4
+MOE_LENS = (128, 128, 256, 256, 384, 384, 512, 512)
+MOE_GEN = 32
 
 
 def log(*a):
@@ -372,7 +398,8 @@ SWEEP_CASES = (((4096, 13696), 6, 128, 448.0, True), ((4096, 13696), 11, 128, 44
                ((512, 384), 11, 128, 240.0, False))
 
 
-def check_sweeps(torch, weights, sass: dict | None, clock_mhz: float | None) -> dict:
+def check_sweeps(torch, weights, sass: dict | None, clock_mhz: float | None,
+                 cases=SWEEP_CASES) -> dict:
     """The sweep against its plain version: sign counts equal, the other sums
     |err| <= 1e-4 |plain| + 1e-6 max|plain|.  Timed cases: CUDA-event mean
     of back-to-back launches (the inputs are over the 50 MB L2 at the main
@@ -387,7 +414,7 @@ def check_sweeps(torch, weights, sass: dict | None, clock_mhz: float | None) -> 
     dev = "cuda"
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     record = None
-    for (I, O), n_cand, bs, qmax, timed in SWEEP_CASES:
+    for (I, O), n_cand, bs, qmax, timed in cases:
         wp, wb = weights(I, O)
         amax = wp.reshape(I // bs, bs, O // bs, bs).abs().amax(dim=(1, 3)).clamp_min(1e-12)
         grid = linspace(0.8, 1.25, n_cand - 1, dev) if n_cand > 1 else torch.ones(0, device=dev)
@@ -483,7 +510,7 @@ def floats_differ(torch, a, b) -> int:
     return int(((a.view(torch.int32) != b.view(torch.int32)) & ~(a.isnan() & b.isnan())).sum())
 
 
-def check_quantizer(torch, weights) -> dict:
+def check_quantizer(torch, weights, cases=QUANT_CASES) -> dict:
     """The quantizer against its plain version (``QUANT_CASES``): codes and
     scales bit-equal.  Timed cases: device time (``device_ms``, as the
     matmul: the profiler's kernel durations, copies of w together over the
@@ -494,7 +521,7 @@ def check_quantizer(torch, weights) -> dict:
     from repro_torch.kernels.fp8_quant.ref import quantize_fp8_ref
     alpha = torch.tensor([1.0375], device="cuda")
     records = {}
-    for (I, O), bs, timed, offset in QUANT_CASES:
+    for (I, O), bs, timed, offset in cases:
         w, _ = weights(I, O)
         if offset:
             w = torch.cat([torch.zeros(offset, device="cuda"), w.reshape(-1)])[offset:].view(I, O)
@@ -1108,7 +1135,7 @@ def main_path(torch, args, records: dict):
     log(f"quantize: {quant_s:.2f} s for {report.n_quantized} tensors "
         f"({report.original_bytes / 1e9:.2f} GB bf16 -> {report.quantized_bytes / 1e9:.2f} GB), "
         f"peak {quant_peak:.2f} GB")
-    log(f"quantize: chosen-alpha hash {alpha_hash(report)}, code-and-scale hash "
+    log(f"quantize: chosen-alpha hash {alpha_hash(report.per_leaf)}, code-and-scale hash "
         f"{code_hash(torch, qparams)} over {leaf_layers(report)} leaf-layers")
     dec_tokens = stats["counters"]["tokens"]
     log(f"serve: {len(outputs)} requests x {GEN} tokens in {serve_s:.2f} s "
@@ -2360,7 +2387,7 @@ def methods_phase(torch, args, model, post, prompts, base_state, daq_outputs) ->
                                                           "daq-per-block")
     log(report.summary())
     log(f"methods phase, daq-per-block: quantize {secs:.2f} s for {report.n_quantized} "
-        f"tensors, peak {peak:.2f} GB; chosen-alpha hash {alpha_hash(report)}, "
+        f"tensors, peak {peak:.2f} GB; chosen-alpha hash {alpha_hash(report.per_leaf)}, "
         f"code-and-scale hash {code_hash(torch, tree)} over {leaf_layers(report)} "
         f"leaf-layers; launches {json.dumps(launches)}")
     if launches["scale_search"] or launches["fp8_quant"]:
@@ -2835,7 +2862,7 @@ def ssm_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
     log(f"ssm phase, quantize: {quant_s:.2f} s for {report.n_quantized} tensors, {n} "
         f"leaf-layers ({report.original_bytes / 1e9:.2f} GB bf16 -> "
         f"{report.quantized_bytes / 1e9:.2f} GB), peak {quant_peak:.2f} GB; chosen-alpha "
-        f"hash {alpha_hash(report)}, code-and-scale hash {code_hash(torch, qparams)}")
+        f"hash {alpha_hash(report.per_leaf)}, code-and-scale hash {code_hash(torch, qparams)}")
     dec = stats["counters"]["tokens"]
     log(f"ssm phase, serve: {len(outputs)} requests of {list(SSM_LENS)} prompt tokens x {GEN} "
         f"in {serve_s:.2f} s ({SLOTS * GEN / serve_s:.1f} tok/s end to end); "
@@ -2902,6 +2929,334 @@ def ssm_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
     del qparams
     torch.cuda.empty_cache()
     ssm_small_agreement(torch, seed)
+
+
+def moe_serve_launches(stats: dict, n_layers: int) -> dict:
+    """The fp8 routes' launches a bf16 serve of a DeepSeek-V3 tree makes:
+    seven block-128 products a layer (four of attention, then the dense
+    prefix's MLP or the MoE layer's shared expert), prefill rows on the
+    wgmma route and decode rows on the decode route, and the LM head on the
+    decode route once a decode step and once a prefill call; nothing on
+    the CUDA-core route: the router is fp32 and never quantized, and the
+    expert stacks are dequantized and multiplied by ``torch.matmul``."""
+    return {"fp8_matmul_wgmma": 7 * n_layers * stats["prefill_calls"],
+            "fp8_matmul_decode": (7 * n_layers + 1) * stats["decode_steps"]
+            + stats["prefill_calls"],
+            "fp8_matmul": 0}
+
+
+def routing_recorder(torch, sink: list, keep: bool = False):
+    """Wrap ``repro_torch.models.moe.top_k_routing`` so each call appends
+    ``(tokens, assignments dispatched)`` to ``sink`` (``keep``: the dispatch
+    and combine tensors themselves); returns the function that restores
+    the original."""
+    from repro_torch.models import moe
+    fn = moe.top_k_routing
+
+    def wrapped(logits, top_k, capacity):
+        out = fn(logits, top_k, capacity)
+        tokens = logits.shape[0] * logits.shape[1]
+        sink.append((tokens, out[0].sum(dtype=torch.float32)) if not keep
+                    else (out[0].float().cpu(), out[1].float().cpu()))
+        return out
+
+    moe.top_k_routing = wrapped
+    return lambda: setattr(moe, "top_k_routing", fn)
+
+
+def moe_kernel_checks(torch, g) -> None:
+    """The two tensor-core routes at the DeepSeek-V3 layer's widths (wq and
+    wo [7168,7168], wk / wv [7168,896], the shared expert's [7168,2048] and
+    [2048,7168], the LM head [7168,129280]) at a decode step's M = 8 and a
+    prefill's M = 512, and the sweep (11 candidates) and the quantizer at an
+    expert's [7168,2048], each against its plain version and timed beside
+    its bound and cuBLAS."""
+    from repro_torch.kernels.fp8_matmul.kernel import matmul_fp8_decode, matmul_fp8_wgmma
+
+    def weights(I, O):
+        wp = (torch.randn((I, O), generator=g, device="cuda") * 0.02).bfloat16().float()
+        wb = (wp + torch.randn((I, O), generator=g, device="cuda") * 2e-4).bfloat16().float()
+        return wp, wb
+
+    for K, N in ((7168, 7168), (7168, 896), (7168, 2048), (2048, 7168), (7168, 129280)):
+        for name, run, M in (("fp8_matmul_decode", matmul_fp8_decode, SLOTS),
+                             ("fp8_matmul_wgmma", matmul_fp8_wgmma, 512)):
+            check_matmul(torch, f"{name} (moe phase)", run, MatmulCase(torch, g, M, K, N),
+                         time_it=True)
+            torch.cuda.empty_cache()
+    check_sweeps(torch, weights, None, None, cases=(((7168, 2048), 11, 128, 448.0, True),))
+    check_quantizer(torch, weights, cases=(((7168, 2048), 128, True, 0),))
+
+
+def stacked_dequantize_check(torch, qt) -> None:
+    """The expert stack ``qt`` [1, 256, 7168, 2048] dequantized to bf16 in one
+    copy and one in-place multiply (``qlinear.resolve_as``) against the
+    per-matrix ``dequantize_stored`` in fp32, cast, at four experts: bit
+    for bit."""
+    from repro_torch.core.formats import get_format
+    from repro_torch.core.granularity import dequantize_stored
+    from repro_torch.quant_runtime import qlinear
+    one = qt.layer(0)
+    got = qlinear.resolve_as(one, torch.bfloat16)
+    bad = 0
+    for e in (0, 1, 128, one.shape[0] - 1):
+        want = dequantize_stored(one.data[e], one.scale[e], one.granularity,
+                                 get_format(one.fmt), one.block_size, torch.float32)
+        bad += int((got[e].view(torch.int16) != want.bfloat16().view(torch.int16)).sum())
+    log(f"moe phase: the expert stack {list(one.shape)} dequantized to bf16 in one pass, "
+        f"against the per-matrix fp32 dequantize cast: {bad} differing bits at 4 experts "
+        f"-> {'ok' if bad == 0 else 'FAIL'}")
+    if bad:
+        raise AssertionError("moe phase: the stacked dequantize differs from the per-matrix one")
+
+
+def moe_small_agreement(torch, seed: int, device: str = "cuda") -> dict:
+    """A small float32 DeepSeek-V3-shaped model (a dense-prefix layer and an
+    MoE layer of 8 experts of 256, top-2, a shared expert; width 256, vocab
+    1,024) quantized once on the CPU at block 64 and run on the CPU and on
+    ``device`` on fp32 activations (embedding rows fed straight in through
+    the layer functions ``Model.prefill`` / ``decode_step`` run: bf16
+    activations would flip top-k choices between devices), every product
+    on the CUDA-core route there: a prefill of 4 x 32 tokens and 2 greedy
+    decode steps.  Every routing call's dispatch equal and its combine
+    within 1 bf16 ulp; the last-token logits within 1e-3 of their scale;
+    the greedy tokens equal.  Returns the kernels' launches of the device
+    run."""
+    from repro_torch.configs import QuantConfig, get_arch
+    from repro_torch.core.policy import tree_map
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.models import build_model
+    from repro_torch.models import lm as TL
+    from repro_torch.models.common import apply_norm, lm_logits
+    from repro_torch.quant_runtime import qlinear
+    from repro_torch.quant_runtime.qparams import QuantizedTensor
+    from repro_torch.quantize import quantize
+    cfg = dataclasses.replace(get_arch("deepseek-v3"), n_layers=2, first_k_dense=1,
+                              d_model=256, n_heads=2, n_kv_heads=1, head_dim=128, d_ff=256,
+                              d_ff_dense=512, n_experts=8, top_k=2, vocab_size=1024,
+                              dtype="float32")
+    B, S, steps = 4, 32, 2
+    m_cpu, m_dev = build_model(cfg, device="cpu"), build_model(cfg, device=device)
+    g = torch.Generator().manual_seed(seed + 13)
+    post = m_cpu.init(g)
+    q_cpu, _ = quantize(post, make_base(torch, post, g),
+                        QuantConfig(use_fused_kernel=True, block_size=64), mode="storage")
+    q_dev = tree_map(lambda t: dataclasses.replace(t, data=t.data.to(device),
+                                                   scale=t.scale.to(device))
+                     if isinstance(t, QuantizedTensor) else t.to(device), q_cpu)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=g)
+
+    def run(model, q, feed=None):
+        """Last-token logits (on the CPU) of the prefill and of each decode
+        step; the steps take ``feed``'s tokens, or the run's own greedy ones."""
+        dev = model.device
+        cache = model.init_cache(B, S + steps)
+        x = qlinear.take(q["embed"]["embed"], toks.to(dev))
+        out = []
+        for step in range(steps + 1):
+            lengths = torch.full((B,), S + step - 1, dtype=torch.int32, device=dev)
+            for name, spec, n in model.groups:
+                for i in range(n):
+                    lp, lc = TL.layer_view(q[name]["L0"], i), TL.layer_view(cache[name]["L0"], i)
+                    x = (TL.apply_layer_prefill(lp, x, lc, cfg, spec) if step == 0 else
+                         TL.apply_layer_decode(lp, x, lc, lengths, cfg, spec))
+            out.append(lm_logits(q["embed"], apply_norm(q["final_norm"], x[:, -1:],
+                                                        cfg.norm_eps))[:, 0].float().cpu())
+            nxt = out[-1].argmax(-1) if feed is None else feed[step]
+            x = qlinear.take(q["embed"]["embed"], nxt[:, None].to(dev))
+        return out
+
+    rec_cpu, rec_dev = [], []
+    restore = routing_recorder(torch, rec_cpu, keep=True)
+    try:
+        lc = run(m_cpu, q_cpu)
+    finally:
+        restore()
+    restore = routing_recorder(torch, rec_dev, keep=True)
+    for k in KERNELS:
+        k.launches = 0
+    try:
+        ld = run(m_dev, q_dev, feed=[c.argmax(-1) for c in lc])
+        sync(torch, device)
+    finally:
+        restore()
+    launches = {k.name: k.launches for k in KERNELS}
+    if len(rec_cpu) != len(rec_dev) or len(rec_cpu) != steps + 1:
+        raise AssertionError(f"small moe model: {len(rec_cpu)} / {len(rec_dev)} routing calls")
+    for i, ((dc, cc), (dd, cd)) in enumerate(zip(rec_cpu, rec_dev)):
+        ulp = torch.exp2(torch.floor(torch.log2(cc.abs().clamp_min(2.0 ** -126))) - 7)
+        if not torch.equal(dc, dd) or not bool(((cd - cc).abs() <= ulp).all()):
+            raise AssertionError(f"small moe model: routing call {i} differs on {device}: "
+                                 f"{int((dc != dd).any(-1).any(-1).sum())} tokens dispatched "
+                                 f"differently")
+    worst, held = 0.0, 0
+    for step, (c, d) in enumerate(zip(lc, ld)):
+        scale = float(c.abs().max())
+        worst = max(worst, float((d - c).abs().max()) / scale)
+        top = torch.topk(c, 2, dim=-1).values
+        sure = (top[:, 0] - top[:, 1]) > 1e-3 * scale
+        if not torch.equal(d.argmax(-1)[sure], c.argmax(-1)[sure]):
+            raise AssertionError(f"small moe model: greedy tokens differ at step {step}")
+        held += int(sure.sum())
+    want = 15 * (steps + 1)        # 7 products a layer x 2 and the LM head, a forward
+    log(f"small moe model agreement ({device} vs CPU, fp32 activations, block 64): "
+        f"{len(rec_cpu)} routing calls dispatched equally; logits max |dev - cpu| "
+        f"{worst:.3e} of their scale (tolerance 1e-3); greedy tokens equal, {held} of "
+        f"{B * (steps + 1)} above a 1e-3 margin; launches {json.dumps(launches)}")
+    if worst > 1e-3 or held < B:
+        raise AssertionError("small moe model: logits disagree, or no token was held")
+    if torch.device(device).type == "cuda" and (launches["fp8_matmul"] != want
+                                                or sum(launches.values()) != want):
+        raise AssertionError(f"small moe model: launches {launches}, expected {want} of "
+                             f"fp8_matmul")
+    return launches
+
+
+def moe_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
+    """Phase 7k: DeepSeek-V3 at full width cut to ``MOE_LAYERS`` layers,
+    quantized in two subtrees and served through the port's entry points;
+    the kernels' launches of the quantize and the serve go into
+    ``records``."""
+    from repro_torch.configs import QuantConfig, get_arch
+    from repro_torch.engine import Engine
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.kernels.fp8_matmul.kernel import TC_MIN_ROWS
+    from repro_torch.kernels.scale_search.kernel import sweep_plan
+    from repro_torch.models import build_model
+    from repro_torch.quantize import quantize
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = dataclasses.replace(get_arch("deepseek-v3"), n_layers=MOE_LAYERS)
+    if 2 >= TC_MIN_ROWS or SLOTS >= TC_MIN_ROWS:
+        raise AssertionError("moe_serve_launches counts a prefill's LM head and every decode "
+                             f"product on the decode route: groups of 2 and SLOTS must stay "
+                             f"below {TC_MIN_ROWS}")
+    log(f"moe phase: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+        f"head_dim={cfg.resolved_head_dim} experts={cfg.n_experts} x d_ff {cfg.d_ff} top-"
+        f"{cfg.top_k} + {cfg.n_shared_experts} shared, dense prefix {cfg.first_k_dense} x "
+        f"d_ff {cfg.d_ff_dense}, vocab={cfg.vocab_size}, layers={cfg.n_layers} of 61 "
+        f"({cfg.param_count() / 1e9:.3f} B params)")
+    model = build_model(cfg, device=device)
+    t0 = time.perf_counter()
+    g = torch.Generator(device=model.device).manual_seed(seed + 12)
+    post = model.init(g)
+    sync(torch, device)
+    log(f"moe phase: post made in {time.perf_counter() - t0:.2f} s")
+    gr = torch.Generator(device=model.device).manual_seed(seed + 14)
+    requests = [torch.randint(0, cfg.vocab_size, (L,), generator=gr, device=model.device)
+                for L in MOE_LENS]
+    qcfg = QuantConfig(use_fused_kernel=True)
+    first = ("embed", "final_norm", "prefix")
+    drops: list = []
+
+    # ---- the MoE path: counts zeroed just before, read just after ----
+    for k in KERNELS:
+        k.launches = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    quant_s, parts, reports = 0.0, {}, []
+    for keys in (first, ("stack",)):
+        sub = {k: post.pop(k) for k in keys}    # each base made just before its quantize
+        base = make_base(torch, sub, g)
+        sync(torch, device)
+        t0 = time.perf_counter()
+        q, rep = quantize(sub, base, qcfg, mode="storage")
+        sync(torch, device)
+        quant_s += time.perf_counter() - t0
+        parts.update(q)
+        reports.append(rep)
+        del sub, base, q
+    qparams = parts
+    quant_peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    engine = Engine(model, qparams, slots=SLOTS, cache_len=max(MOE_LENS) + MOE_GEN,
+                    k_steps=K_STEPS)
+    restore = routing_recorder(torch, drops)
+    try:
+        t0 = time.perf_counter()
+        outputs, stats = engine.serve(requests, gen_tokens=MOE_GEN, return_stats=True)
+        sync(torch, device)
+        serve_s = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = {k.name: k.launches for k in KERNELS}
+    # ---- end of the MoE path ----
+
+    serve_peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+    per_leaf = {k: v for r in reports for k, v in r.per_leaf.items()}
+    n = sum(math.prod(v["shape"][:-2]) for v in per_leaf.values())
+    log(f"moe phase, quantize: {quant_s:.2f} s for {sum(r.n_quantized for r in reports)} "
+        f"tensors, {n} leaf-matrices ({sum(r.original_bytes for r in reports) / 1e9:.2f} GB "
+        f"bf16 -> {sum(r.quantized_bytes for r in reports) / 1e9:.2f} GB), peak "
+        f"{quant_peak:.2f} GB; chosen-alpha hash {alpha_hash(per_leaf)}, code-and-scale hash "
+        f"{code_hash(torch, qparams)}")
+    dropped = {"prefill": [0, 0], "decode": [0, 0]}
+    for tokens, kept in drops:
+        side = dropped["decode" if tokens <= SLOTS else "prefill"]
+        side[0] += tokens * cfg.top_k
+        side[1] += tokens * cfg.top_k - int(kept)
+    dec = stats["counters"]["tokens"]
+    log(f"moe phase, serve: {len(outputs)} requests of {list(MOE_LENS)} prompt tokens x "
+        f"{MOE_GEN} in {serve_s:.2f} s ({SLOTS * MOE_GEN / serve_s:.1f} tok/s end to end); "
+        f"{stats['prefill_calls']} prefill calls in {stats['prefill_s']:.3f} s for "
+        f"{stats['prefill_tokens']} prompt tokens; decode {dec} tokens in "
+        f"{stats['decode_s']:.3f} s = {dec / stats['decode_s']:.1f} tok/s "
+        f"({stats['decode_s'] / stats['decode_steps'] * 1e3:.2f} ms a step of {SLOTS} slots); "
+        f"peak {serve_peak:.2f} GB; assignments dropped by capacity: prefill "
+        f"{dropped['prefill'][1]} of {dropped['prefill'][0]}, decode {dropped['decode'][1]} "
+        f"of {dropped['decode'][0]}; launches {json.dumps(launches)}")
+    experts = [f"stack/L0/moe/{w}" for w in ("w_down", "w_gate", "w_up")]
+    want_leaves = sorted(["embed/embed", "embed/w_head", *experts,
+                          *(f"stack/L0/moe/shared/{w}" for w in ("w_down", "w_gate", "w_up")),
+                          *(f"{grp}/L0/attn/{w}" for grp in ("prefix", "stack")
+                            for w in ("wk", "wo", "wq", "wv")),
+                          *(f"prefix/L0/mlp/{w}" for w in ("w_down", "w_gate", "w_up"))])
+    want_n = 2 + 7 * cfg.first_k_dense + (7 + 3 * cfg.n_experts) * (MOE_LAYERS
+                                                                     - cfg.first_k_dense)
+    if sorted(per_leaf) != want_leaves or n != want_n:
+        raise AssertionError(f"moe phase: quantized leaves {sorted(per_leaf)} ({n} "
+                             f"leaf-matrices), expected {want_leaves} ({want_n})")
+    passes = len(sweep_plan(1 + qcfg.n_coarse)) + len(sweep_plan(1 + qcfg.n_fine))
+    want = {"scale_search": passes * n, "fp8_quant": n,
+            **moe_serve_launches(stats, cfg.n_layers)}
+    if stats["prefill_calls"] != len(set(MOE_LENS)):
+        raise AssertionError(f"moe phase: {stats['prefill_calls']} prefill calls, expected "
+                             f"one per prompt length ({len(set(MOE_LENS))})")
+    for name, w in want.items():
+        if launches[name] != w:
+            raise AssertionError(f"moe phase: {name} launched {launches[name]} times, "
+                                 f"expected {w}")
+    for out in outputs:
+        if len(out) != MOE_GEN or not all(0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"moe phase: bad output row {out[:8]}... ({len(out)} tokens)")
+    for r in reports:
+        for side in (r.global_chosen, r.global_default):
+            if not all(math.isfinite(v) for v in side.values()):
+                raise AssertionError(f"moe phase: non-finite report metrics {side}")
+        leaf_sign_rates_hold(r, "moe phase")
+    if dropped["decode"][1]:
+        raise AssertionError("moe phase: a decode step dropped an assignment (its capacity of "
+                             f"8 holds all {SLOTS} tokens)")
+    for name, k in launches.items():
+        if name in records:
+            records[name]["launches"] += k
+    log(f"moe phase: launches asserted ({json.dumps(want)}); first row {outputs[0][:12]}...")
+    if not cuda:
+        return
+
+    del engine
+    stacked_dequantize_check(torch, qparams["stack"]["L0"]["moe"]["w_gate"])
+    torch.cuda.empty_cache()
+    same = torch.stack([r[:PROMPT] for r in requests])
+    breakdowns(torch, model, qparams, same, tree=f"{cfg.name} ({MOE_LAYERS} layers) ")
+    del qparams
+    torch.cuda.empty_cache()
+    moe_kernel_checks(torch, torch.Generator(device="cuda").manual_seed(seed + 15))
+    torch.cuda.empty_cache()
+    small = moe_small_agreement(torch, seed)
+    records["fp8_matmul"]["launches"] += small["fp8_matmul"]
 
 
 def clone_tree(tree):
@@ -3009,19 +3364,20 @@ def paged_breakdown(torch, phase: dict, steps: int = BREAKDOWN_STEPS) -> None:
 
 
 def leaf_layers(report) -> int:
-    """Matrices the quantize searched: a stacked leaf [L, I, O] counts L."""
-    return sum(leaf["shape"][0] if len(leaf["shape"]) == 3 else 1
-               for leaf in report.per_leaf.values())
+    """Matrices the quantize searched: a stacked leaf [L, I, O] counts L, an
+    expert stack [L, E, I, O] L x E."""
+    return sum(math.prod(leaf["shape"][:-2]) for leaf in report.per_leaf.values())
 
 
-def alpha_hash(report) -> str:
+def alpha_hash(per_leaf: dict) -> str:
     """sha256 (first 16 hex digits) of every leaf's chosen alphas (float32,
-    leaves by name): the sign metric's argmax reads integer counts, so a
-    correct sweep reproduces a tree's alphas exactly."""
+    leaves by name; ``per_leaf`` as a quantize report holds it): the sign
+    metric's argmax reads integer counts, so a correct sweep reproduces a
+    tree's alphas exactly."""
     h = hashlib.sha256()
-    for name in sorted(report.per_leaf):
+    for name in sorted(per_leaf):
         h.update(name.encode())
-        h.update(report.per_leaf[name]["alpha"].astype("float32").tobytes())
+        h.update(per_leaf[name]["alpha"].astype("float32").tobytes())
     return h.hexdigest()[:16]
 
 
@@ -3123,7 +3479,7 @@ def tree_readings(torch, layers: int = 40, seed: int = 0) -> None:
     qparams, report = quantize(post, base, QuantConfig(use_fused_kernel=True), mode="storage")
     torch.cuda.synchronize()
     log(f"quantize with {where}: {time.perf_counter() - t0:.2f} s; chosen-alpha hash "
-        f"{alpha_hash(report)}, code-and-scale hash {code_hash(torch, qparams)} over "
+        f"{alpha_hash(report.per_leaf)}, code-and-scale hash {code_hash(torch, qparams)} over "
         f"{leaf_layers(report)} leaf-layers")
 
 
@@ -3218,6 +3574,9 @@ def main() -> int:
     t0 = time.perf_counter()
     ssm_phase(torch, records, args.seed)
     log(f"ssm phase passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moe_phase(torch, records, args.seed)
+    log(f"moe phase passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     quantize_breakdown(torch, args.seed)
     log(f"quantize breakdown took {time.perf_counter() - t0:.1f} s")

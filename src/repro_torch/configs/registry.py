@@ -1,21 +1,22 @@
 """Architecture registry: ``get_arch(<id>)`` + reduced smoke configs.
 
-The port registers the architectures its model code runs (the dense and SSM
-families so far); ``reduced`` is the reference's rule for tiny same-family
-configs.
+The port registers the architectures its model code runs (the dense, SSM
+and MoE families so far); ``reduced`` is the reference's rule for tiny
+same-family configs.
 """
 from __future__ import annotations
 
 import dataclasses
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.deepseek_v3 import CONFIG as _dsv3
 from repro_torch.configs.glm4_9b import CONFIG as _glm4
 from repro_torch.configs.mamba2_780m import CONFIG as _mamba2
 
-ARCHS: dict[str, ModelConfig] = {c.name: c for c in (_glm4, _mamba2)}
+ARCHS: dict[str, ModelConfig] = {c.name: c for c in (_glm4, _mamba2, _dsv3)}
 
 # families whose model code the port runs (models/lm.py::layer_plan)
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "ssm", "moe")
 
 
 def get_arch(name: str) -> ModelConfig:
@@ -42,6 +43,14 @@ def reduced(cfg: ModelConfig, *, vocab: int = 512) -> ModelConfig:
     if cfg.n_heads:
         kw["n_heads"] = 4
         kw["n_kv_heads"] = max(1, min(2, cfg.n_kv_heads))
+    if cfg.family == "moe":
+        kw["n_experts"] = min(8, cfg.n_experts)
+        kw["top_k"] = min(2, cfg.top_k)
+        if cfg.n_shared_experts:
+            kw["n_shared_experts"] = 1
+        if cfg.first_k_dense:
+            kw["first_k_dense"] = 1
+            kw["d_ff_dense"] = 192
     if cfg.family == "ssm":
         kw["ssm_state"] = 16
         kw["d_inner"] = 128

@@ -32,8 +32,9 @@ def tree_map(fn, tree: Any) -> Any:
     return fn(tree)
 
 
-# the subtree whose leaves carry a leading layer axis (``models/lm.py``)
-STACKED = "stack/"
+# the subtrees whose leaves carry a leading layer axis (``models/lm.py``:
+# the period stack, and the MoE family's dense-prefix stack)
+STACKED = ("stack/", "prefix/")
 
 
 def should_quantize(path: str, leaf: Any, skip_patterns=DEFAULT_SKIP,

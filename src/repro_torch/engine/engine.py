@@ -90,6 +90,7 @@ from repro_torch.engine.prefix import PrefixIndex
 from repro_torch.engine.sampler import SamplingParams, sample
 from repro_torch.engine.scheduler import init_slot_state, make_decode_dispatch
 from repro_torch.engine.spec import DepthController
+from repro_torch.models.lm import stacked_groups
 from repro_torch.telemetry.counters import (COUNTER_KEYS, bump, counter_totals,
                                             init_counters)
 
@@ -135,8 +136,9 @@ def refuse_unported(mcfg, cfg: EngineConfig) -> None:
         raise NotImplementedError(
             f"family {mcfg.family!r} runs on the contiguous engine only: the paged, "
             f"chunked, prefix-cached and speculative engines' SSM paths (per-slot SSM "
-            f"leaves, mamba_prefill_chunk, mamba_verify_chunk) are not ported yet "
-            f"(ROADMAP Queue A 5)")
+            f"leaves, mamba_prefill_chunk, mamba_verify_chunk) and MoE paths "
+            f"(full-capacity routing, the dense-prefix stack's block pools) are not "
+            f"ported yet (ROADMAP Queue A 5)")
 
 
 class Engine:
@@ -215,8 +217,9 @@ class Engine:
     def _scatter(cache, state, part, slots, first, rem0):
         """Write ``part``'s rows (batch axis 1 under the layer axis) into the
         live cache at ``slots`` and arm the slot state, in place."""
-        for name, full in cache["stack"]["L0"].items():
-            full[:, slots] = part["stack"]["L0"][name].to(full.dtype)
+        for grp in stacked_groups(cache):
+            for name, full in cache[grp]["L0"].items():
+                full[:, slots] = part[grp]["L0"][name].to(full.dtype)
         cache["lengths"][slots] = part["lengths"]
         state["cur"][slots, 0] = first
         state["active"][slots] = rem0 > 0

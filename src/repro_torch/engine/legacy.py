@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.engine.sampler import SamplingParams, sample
 from repro_torch.engine.scheduler import make_decode_step
+from repro_torch.models.lm import stacked_groups
 
 
 @torch.no_grad()
@@ -24,8 +25,9 @@ def single_slot_prefill(model, params, cache, tokens_row, slot: int, cache_len: 
     cache rows and length into the slot, in place.  Returns (last-token
     logits [V], cache)."""
     logits, one = model.prefill(params, {"tokens": tokens_row[None]}, cache_len=cache_len)
-    for name, full in cache["stack"]["L0"].items():
-        full[:, slot] = one["stack"]["L0"][name][:, 0].to(full.dtype)
+    for grp in stacked_groups(cache):
+        for name, full in cache[grp]["L0"].items():
+            full[:, slot] = one[grp]["L0"][name][:, 0].to(full.dtype)
     cache["lengths"][slot] = one["lengths"][0]
     return logits[0], cache
 

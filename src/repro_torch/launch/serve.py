@@ -30,9 +30,10 @@ reference, with the same checks and messages, and one more, ``--device``
   full vocabulary, as the reference does.
 * **Not ported**: ``--mesh`` other than 0 (sharded serving, ROADMAP Queue
   A 9) exits with a message, and so do ``--paged`` (with ``--chunk-size``,
-  ``--prefix-cache``, ``--spec-draft``) on an SSM arch such as
-  ``mamba2-780m``, which serves on the contiguous engine only (ROADMAP
-  Queue A 5); the reference's ``compiles:`` line (its jit cache sizes) has
+  ``--prefix-cache``, ``--spec-draft``) on an SSM arch (``mamba2-780m``)
+  or an MoE arch (``deepseek-v3``), which serve on the contiguous engine
+  only (ROADMAP Queue A 5), and ``--method smoothquant`` / ``awq`` on an
+  MoE arch (their calibration forward runs no MoE layer yet); the reference's ``compiles:`` line (its jit cache sizes) has
   no counterpart, since the port compiles nothing at serve time.
 
 Usage (CPU-scale):

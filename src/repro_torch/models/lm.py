@@ -1,20 +1,25 @@
-"""Model assembly for the dense decoder and the Mamba-2 (SSM) families.
+"""Model assembly for the dense decoder, Mamba-2 (SSM) and MoE families.
 
-Port of ``repro/models/lm.py`` for ``family == "dense"`` and ``"ssm"``.
-Each family is the reference's layer plan (``layer_plan``): one
-``(mixer, ffn)`` spec repeated ``n_layers`` times, ``("attn", "mlp")`` for
-dense, ``("mamba", "none")`` for SSM.  Params keep the reference's tree
-layout — per-layer leaves stacked on a leading ``[n_layers, ...]`` axis
-under ``params["stack"]["L0"]`` (``stack/L0/mamba/in_z`` and so on) — so a
-tree converted from the reference (``repro_torch.compat.params_from_jax``)
-loads directly.  A layer's decode cache is K/V rows for attention and the
-recurrent state (``h``, ``conv_x``, ``conv_bc``, no sequence axis) for
-Mamba (``init_layer_cache``).  Where the reference ``lax.scan``s over the
-stack, the port loops over layers in Python, slicing each layer's views
-out of the stacked leaves; decode caches are updated in place (the torch counterpart of the
-reference's buffer donation).  The paged decode cache (``init_paged_cache``,
-``decode_step_paged``) holds per-layer K/V block pools
-``[n_layers, num_blocks + 1, block_size, Kv, hd]`` under
+Port of ``repro/models/lm.py`` for ``family == "dense"``, ``"ssm"`` and
+``"moe"``.  Each family is the reference's layer plan (``layer_plan``): one
+``(mixer, ffn)`` spec repeated over the stack, ``("attn", "mlp")`` for
+dense, ``("mamba", "none")`` for SSM, ``("attn", "moe")`` for MoE, whose
+first ``first_k_dense`` layers are a prefix stack of ``("attn",
+"mlp_dense")`` run before it.  Params keep the reference's tree layout —
+per-layer leaves stacked on a leading ``[n, ...]`` axis under
+``params["stack"]["L0"]`` (``stack/L0/mamba/in_z`` and so on) and
+``params["prefix"]["L0"]``, the MoE expert stacks as ``[n, E, D, F]`` — so
+a tree converted from the reference
+(``repro_torch.compat.params_from_jax``) loads directly; decode caches
+stack the same way under ``cache["prefix"]`` and ``cache["stack"]``.  A
+layer's decode cache is K/V rows for attention and the recurrent state
+(``h``, ``conv_x``, ``conv_bc``, no sequence axis) for Mamba
+(``init_layer_cache``).  Where the reference ``lax.scan``s over the stack,
+the port loops over layers in Python, slicing each layer's views out of the
+stacked leaves; decode caches are updated in place (the torch counterpart
+of the reference's buffer donation).  The paged decode cache
+(``init_paged_cache``, ``decode_step_paged``) holds per-layer K/V block
+pools ``[n_layers, num_blocks + 1, block_size, Kv, hd]`` under
 ``cache["stack"]["L0"]`` and the allocator state of ``engine/paged.py`` at
 the cache's top level, as the reference's does; ``prefill_chunk_paged``
 runs one piece of each slot's prompt through that cache (chunked prefill,
@@ -23,9 +28,9 @@ tokens (each row the decode step at its position, on the CPU bit for bit).
 ``run_stack_train`` is the full-sequence forward with no cache: the one
 calibration walks (``data/synthetic.py::_full_logits``) without grad, and
 the one ``Model.loss_fn`` trains through with grad, each layer under the
-reference's remat policies (``_remat``).  The paged, chunked and
-speculative forwards run the dense family only; an SSM model raises
-there (its state has no blocks to page, ROADMAP Queue A 5).
+reference's remat policies (``_remat``); it runs no MoE layer (MoE training
+is ROADMAP Queue A 5).  The paged, chunked and speculative forwards run the
+dense family only; an SSM or MoE model raises there (ROADMAP Queue A 5).
 """
 from __future__ import annotations
 
@@ -33,6 +38,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.core.policy import tree_map
 from repro_torch.models.common import (apply_mlp, apply_norm, apply_rope, chunked_xent,
@@ -67,6 +73,10 @@ def layer_plan(cfg: ModelConfig):
     ``layer_plan``, for the families the port runs."""
     if cfg.family == "dense":
         return [], 0, [ATTN_MLP], cfg.n_layers
+    if cfg.family == "moe":
+        k = cfg.first_k_dense
+        prefix = [("attn", "mlp_dense")] if k else []
+        return prefix, k, [("attn", "moe")], cfg.n_layers - k
     if cfg.family == "ssm":
         return [], 0, [("mamba", "none")], cfg.n_layers
     raise NotImplementedError(f"family {cfg.family!r} is not ported yet (ROADMAP Queue A 5)")
@@ -84,6 +94,12 @@ def init_layer(gen, cfg: ModelConfig, dtype, device, spec: LayerSpec) -> dict:
     if ffn == "mlp":
         p["ln2"] = init_norm(cfg, dtype, device)
         p["mlp"] = init_mlp(gen, cfg, cfg.d_ff, dtype, device)
+    elif ffn == "mlp_dense":
+        p["ln2"] = init_norm(cfg, dtype, device)
+        p["mlp"] = init_mlp(gen, cfg, cfg.d_ff_dense or cfg.d_ff, dtype, device)
+    elif ffn == "moe":
+        p["ln2"] = init_norm(cfg, dtype, device)
+        p["moe"] = MOE.init_moe(gen, cfg, dtype, device)
     elif ffn != "none":
         raise ValueError(ffn)
     return p
@@ -101,10 +117,15 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, cache_len: i
 
 
 def _ffn(p: dict, x, cfg: ModelConfig, spec: LayerSpec):
-    """The residual feed-forward half of a layer (none for Mamba layers)."""
+    """The residual feed-forward half of a layer (none for Mamba layers; an
+    MoE layer routes with capacity and drops its auxiliary loss, as the
+    reference's prefill and decode do)."""
     if spec[1] == "none":
         return x
-    return x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm_eps))
+    h = apply_norm(p["ln2"], x, cfg.norm_eps)
+    if spec[1] == "moe":
+        return x + MOE.apply_moe(p["moe"], h, cfg)[0]
+    return x + apply_mlp(p["mlp"], h)
 
 
 def _init_stack(gen, cfg: ModelConfig, n: int, dtype, device, spec: LayerSpec) -> dict:
@@ -337,6 +358,10 @@ def run_stack_train(stack: dict, x, cfg: ModelConfig, remat: str = "full"):
     grad, each layer runs under ``remat`` (``_remat``) and the gradients
     reach the stacked leaves in the reference's ``[n_layers, ...]``
     layout; the forward's bits are the same either way."""
+    if cfg.family == "moe":
+        raise NotImplementedError("MoE training (the router's auxiliary loss, the backward "
+                                  "through routing) and the dense-prefix stack's "
+                                  "full-sequence forward are not ported yet (ROADMAP Queue A 5)")
     n = n_stacked(stack)
     spec = layer_plan(cfg)[2][0]
     if not torch.is_grad_enabled():
@@ -349,42 +374,61 @@ def run_stack_train(stack: dict, x, cfg: ModelConfig, remat: str = "full"):
     return x
 
 
+def stacked_groups(tree: dict) -> list[str]:
+    """The stacked subtrees of a param or cache tree, in the order a forward
+    runs them: the MoE dense prefix (``"prefix"``), then ``"stack"``."""
+    return [k for k in ("prefix", "stack") if k in tree]
+
+
 class Model:
-    """Dense decoder or Mamba-2 stack: ``init``, ``loss_fn``,
+    """Dense decoder, Mamba-2 or MoE stack: ``init``, ``loss_fn``,
     ``init_cache``, ``prefill``, ``decode_step`` with the reference
     ``Model``'s signatures (a ``torch.Generator`` in place of a PRNG key).
-    The paged forwards run the dense family only."""
+    ``groups`` lists each stacked subtree with its layer spec, the MoE
+    family's dense prefix first.  The paged forwards and ``loss_fn`` run
+    the dense (and ``loss_fn`` the SSM) family only."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         if cfg.sliding_window:
             raise NotImplementedError("sliding-window (ring) caches are not ported yet "
                                       "(ROADMAP Queue A 5)")
-        self.spec = layer_plan(cfg)[2][0]
+        prefix_specs, n_prefix, specs, n_periods = layer_plan(cfg)
+        self.spec = specs[0]
+        # (subtree, layer spec, layers) in the order a forward runs them
+        self.groups = ([("prefix", prefix_specs[0], n_prefix)] if n_prefix else []) \
+            + [("stack", self.spec, n_periods)]
         self.cfg = cfg
         self.device = get_device(device)
         self.dtype = getattr(torch, cfg.dtype)
 
     def init(self, gen: torch.Generator) -> dict:
+        """Params drawn from ``gen`` in the reference's key order: the
+        embedding, the stack, the prefix."""
         cfg, dt, dev = self.cfg, self.dtype, self.device
-        return {"embed": init_embed(gen, cfg, dt, dev),
-                "stack": _init_stack(gen, cfg, cfg.n_layers, dt, dev, self.spec),
-                "final_norm": init_norm(cfg, dt, dev)}
+        p = {"embed": init_embed(gen, cfg, dt, dev)}
+        for name, spec, n in self.groups[::-1]:
+            p[name] = _init_stack(gen, cfg, n, dt, dev, spec)
+        p["final_norm"] = init_norm(cfg, dt, dev)
+        return p
 
     def _dense_only(self, what: str) -> None:
         """Refuse a paged forward on a stack it would misread: an SSM
-        model's state has no blocks (ROADMAP Queue A 5)."""
-        if self.spec != ATTN_MLP:
+        model's state has no blocks, an MoE model's routing and prefix
+        stack have no paged path (ROADMAP Queue A 5)."""
+        if self.spec != ATTN_MLP or len(self.groups) > 1:
             raise NotImplementedError(
                 f"{what} of family {self.cfg.family!r} is not ported yet: the paged, "
                 f"chunked and speculative engines' SSM paths (per-slot SSM leaves, "
-                f"mamba_prefill_chunk, mamba_verify_chunk) are ROADMAP Queue A 5")
+                f"mamba_prefill_chunk, mamba_verify_chunk) and MoE paths (full-capacity "
+                f"routing, the dense-prefix stack's block pools) are ROADMAP Queue A 5")
 
     def loss_fn(self, params: dict, batch: dict, remat: str = "full"):
         """Mean next-token loss of ``batch`` (``tokens``, ``labels`` [B, S];
         labels < 0 ignored): embed -> stack (under ``remat``) -> final norm
         -> ``chunked_xent``.  Returns ``(loss, {"loss", "aux_loss",
         "accuracy", "n_tokens"})`` as 0-d fp32 tensors; ``aux_loss`` (the
-        MoE router's in the reference) is 0: the port has no MoE layer."""
+        MoE router's in the reference) is 0: the port trains no MoE layer
+        (``run_stack_train`` raises for the family, ROADMAP Queue A 5)."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], batch["tokens"])
         x = run_stack_train(params["stack"]["L0"], x, cfg, remat=remat)
@@ -396,12 +440,16 @@ class Model:
 
     def init_cache(self, batch: int, cache_len: int) -> dict:
         """Zero decode cache: each leaf of ``init_layer_cache`` stacked on a
-        leading layer axis under ``stack/L0``, and per-slot ``lengths``."""
-        one = init_layer_cache(self.cfg, self.spec, batch, cache_len, self.device)
-        stack = {k: torch.zeros((self.cfg.n_layers,) + v.shape, dtype=v.dtype,
-                                device=self.device) for k, v in one.items()}
-        return {"stack": {"L0": stack},
-                "lengths": torch.zeros(batch, dtype=torch.int32, device=self.device)}
+        leading layer axis under ``<group>/L0`` for each of ``groups``, and
+        per-slot ``lengths``."""
+        cache = {}
+        for name, spec, n in self.groups:
+            one = init_layer_cache(self.cfg, spec, batch, cache_len, self.device)
+            cache[name] = {"L0": {k: torch.zeros((n,) + v.shape, dtype=v.dtype,
+                                                 device=self.device)
+                                  for k, v in one.items()}}
+        cache["lengths"] = torch.zeros(batch, dtype=torch.int32, device=self.device)
+        return cache
 
     @torch.no_grad()
     def prefill(self, params: dict, batch: dict, cache_len: int | None = None,
@@ -418,10 +466,11 @@ class Model:
         B, S = tokens.shape
         cache = self.init_cache(B, cache_len or S)
         x = embed_tokens(params["embed"], tokens)
-        stack = params["stack"]["L0"]
-        for i in range(n_stacked(stack)):
-            x = apply_layer_prefill(layer_view(stack, i), x,
-                                    layer_view(cache["stack"]["L0"], i), cfg, self.spec, tiles)
+        for name, spec, _ in self.groups:
+            stack = params[name]["L0"]
+            for i in range(n_stacked(stack)):
+                x = apply_layer_prefill(layer_view(stack, i), x,
+                                        layer_view(cache[name]["L0"], i), cfg, spec, tiles)
         x = apply_norm(params["final_norm"], x, cfg.norm_eps)
         logits = last_token_logits(params["embed"], x, lengths)
         cache["lengths"] = (torch.full((B,), S, dtype=torch.int32, device=tokens.device)
@@ -435,11 +484,11 @@ class Model:
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens)
         lengths = cache["lengths"]
-        stack = params["stack"]["L0"]
-        for i in range(n_stacked(stack)):
-            x = apply_layer_decode(layer_view(stack, i), x,
-                                   layer_view(cache["stack"]["L0"], i), lengths, cfg,
-                                   self.spec)
+        for name, spec, _ in self.groups:
+            stack = params[name]["L0"]
+            for i in range(n_stacked(stack)):
+                x = apply_layer_decode(layer_view(stack, i), x,
+                                       layer_view(cache[name]["L0"], i), lengths, cfg, spec)
         x = apply_norm(params["final_norm"], x, cfg.norm_eps)
         logits = lm_logits(params["embed"], x)[:, 0]
         return logits, {**cache, "lengths": lengths + 1}

@@ -42,6 +42,16 @@ def resolve(w):
     return w
 
 
+def resolve_as(w, dtype: torch.dtype) -> torch.Tensor:
+    """``resolve(w).to(dtype)`` bit for bit, without the intermediate copy
+    where that holds: a quantized leaf whose ``out_dtype`` is float32 or
+    ``dtype`` dequantizes straight to ``dtype`` (its fp32 values rounded
+    once), so a full-width expert stack never has an fp32 copy."""
+    if isinstance(w, QuantizedTensor) and getattr(torch, w.out_dtype) in (torch.float32, dtype):
+        return w.dequantize(dtype)
+    return resolve(w).to(dtype)
+
+
 def _fused_kernel_applies(w: QuantizedTensor) -> bool:
     return (w.ndim == 2 and w.granularity == "block" and w.fmt == "fp8_e4m3"
             and w.eq_scale is None)

@@ -73,11 +73,18 @@ class QuantizedTensor:
                                None if self.eq_scale is None else self.eq_scale[i],
                                None if self.grid is None else self.grid[i])
 
-    def dequantize(self) -> torch.Tensor:
+    def dequantize(self, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """The weights ``q * scale`` (``/ eq_scale``) in ``out_dtype``, or in
+        ``dtype``: the fp32 values rounded once to it, which is
+        ``dequantize().to(dtype)`` bit for bit when ``out_dtype`` is
+        float32 or ``dtype`` itself.  A stacked leaf is written matrix by
+        matrix into one preallocated output, so no second copy of the stack
+        is ever live."""
+        out_dtype = dtype or getattr(torch, self.out_dtype)
         if self.data.ndim > 2:
-            return torch.stack([self.layer(i).dequantize()
-                                for i in range(self.data.shape[0])])
-        out_dtype = getattr(torch, self.out_dtype)
+            out = torch.empty(self.data.shape, dtype=out_dtype, device=self.data.device)
+            self._dequantize_into(out)
+            return out
         if self.eq_scale is None:
             return dequantize_stored(self.data, self.scale, self.granularity,
                                      get_format(self.fmt), self.block_size, out_dtype)
@@ -85,6 +92,22 @@ class QuantizedTensor:
                                             get_format(self.fmt), self.block_size,
                                             torch.float32),
                           self.eq_scale).to(out_dtype)
+
+    def _dequantize_into(self, out: torch.Tensor) -> None:
+        """Write the dequantized weights into ``out`` (a float dtype)."""
+        if self.granularity == "block" and self.eq_scale is None and self.grid is None \
+                and self.fmt.startswith("fp8"):
+            # every fp8 code is exact in bf16 / fp16 / fp32, and the product
+            # is taken in fp32 and rounded once on the store: the bits of
+            # dequantize_stored, with no fp32 temporary of the stack
+            bs, (i, o) = self.block_size, self.data.shape[-2:]
+            out.copy_(self.data)
+            out.view(*self.data.shape[:-2], i // bs, bs, o // bs, bs).mul_(self.scale)
+        elif self.data.ndim > 2:
+            for n in range(self.data.shape[0]):
+                self.layer(n)._dequantize_into(out[n])
+        else:
+            out.copy_(self.dequantize(out.dtype))
 
     def nbytes(self) -> int:
         n = self.data.numel() * get_format(self.fmt).bits // 8 + self.scale.numel() * 4

@@ -118,8 +118,16 @@ def _dequantized(res: SearchResult, qcfg: QuantConfig, dtype: torch.dtype) -> to
     eq = res.eq_scale
     if res.w_q.ndim == 2:
         return deq(res.w_q, res.scale, eq)
-    return torch.stack([deq(res.w_q[i], res.scale[i], None if eq is None else eq[i])
-                        for i in range(res.w_q.shape[0])])
+    # each matrix written into one preallocated output: no second copy of
+    # the stack is live
+    out = torch.empty(res.w_q.shape, dtype=dtype, device=res.w_q.device)
+    flat = out.view(-1, *out.shape[-2:])
+    q = res.w_q.reshape(flat.shape)
+    s = res.scale.reshape(flat.shape[0], *res.scale.shape[res.w_q.ndim - 2:])
+    e = None if eq is None else eq.reshape(flat.shape[0], -1)
+    for i in range(flat.shape[0]):
+        flat[i] = deq(q[i], s[i], None if e is None else e[i])
+    return out
 
 
 def quantize(params_post: Any, params_base: Any = None,

@@ -1,14 +1,17 @@
 """Process-wide runtime flags and device selection.
 
 ``flags`` holds the structural knobs the model code reads (the reference's
-``repro.runtime.flags`` minus the TPU sharding switches): attention chunk
-sizes for the online-softmax loop and the KV-cache storage dtype.
+``repro.runtime.flags`` minus the TPU sharding switches): the MoE routing
+group size, attention chunk sizes for the online-softmax loop and the
+KV-cache storage dtype.
 """
 from __future__ import annotations
 
 import torch
 
 flags: dict = {
+    # MoE dispatch group target size (tokens per routing group, models/moe.py)
+    "moe_group": 1024,
     # attention q/kv chunk sizes for the online-softmax loop (models/flash.py)
     "q_chunk": 1024,
     "kv_chunk": 1024,

@@ -125,16 +125,17 @@ def _logits_close(port, ref, rel):
 # ---------------------------------------------------------------------------
 
 def test_config_and_reduced_config_equal_reference():
-    for ref, port in ((ref_get_arch("mamba2-780m"), get_arch("mamba2-780m")),
-                      (ref_reduced(ref_get_arch("mamba2-780m")),
-                       reduced(get_arch("mamba2-780m")))):
-        assert dataclasses.asdict(port) == dataclasses.asdict(ref)
-        assert (port.param_count(), port.n_ssm_heads, port.resolved_d_inner) == \
-            (ref.param_count(), ref.n_ssm_heads, ref.resolved_d_inner)
+    for name in ("mamba2-780m", "deepseek-v3"):
+        for ref, port in ((ref_get_arch(name), get_arch(name)),
+                          (ref_reduced(ref_get_arch(name)), reduced(get_arch(name)))):
+            assert dataclasses.asdict(port) == dataclasses.asdict(ref)
+            assert (port.param_count(), port.active_param_count(), port.n_ssm_heads,
+                    port.resolved_d_inner) == (ref.param_count(), ref.active_param_count(),
+                                               ref.n_ssm_heads, ref.resolved_d_inner)
     assert dataclasses.asdict(reduced(get_arch("glm4-9b"))) == \
         dataclasses.asdict(ref_reduced(ref_get_arch("glm4-9b")))
     with pytest.raises(NotImplementedError, match="Queue A 5"):
-        reduced(dataclasses.replace(get_arch("glm4-9b"), family="moe"))
+        reduced(dataclasses.replace(get_arch("glm4-9b"), family="hybrid"))
 
 
 # ---------------------------------------------------------------------------
