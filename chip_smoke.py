@@ -462,19 +462,22 @@ def check_sweeps(torch, weights, sass: dict | None, clock_mhz: float | None,
     return record
 
 
+def delta_weights(torch, g):
+    """``weights(I, O)``: a bf16-valued fp32 post weight [I, O] (std 0.02)
+    and a base 1 % of its std away, drawn on the card from ``g``."""
+    def weights(I, O):
+        wp = (torch.randn((I, O), generator=g, device="cuda") * 0.02).bfloat16().float()
+        wb = (wp + torch.randn((I, O), generator=g, device="cuda") * 2e-4).bfloat16().float()
+        return wp, wb
+    return weights
+
+
 def check_kernels(torch, seed: int, sass: dict | None, clock_mhz: float | None) -> dict:
     """Each kernel at main-path shapes vs its plain version.  Returns the
     per-kernel record of the representative shape (others are logged)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    dev = "cuda"
-    bs = 128
     records = {}
-
-    def weights(I, O):
-        wp = (torch.randn((I, O), generator=g, device=dev) * 0.02).bfloat16().float()
-        wb = (wp + torch.randn((I, O), generator=g, device=dev) * 2e-4).bfloat16().float()
-        return wp, wb
-
+    weights = delta_weights(torch, g)
     records["scale_search"] = check_sweeps(torch, weights, sass, clock_mhz)
 
     quant = check_quantizer(torch, weights)
@@ -1186,7 +1189,10 @@ def fp8_serve_launches(stats: dict, n_layers: int) -> dict:
     """The fp8 routes' launches a bf16 serve makes: seven quantized products
     per layer, prefill rows (M >= 16) on the wgmma route, decode rows and
     each LM head (last token, M = slots) on the decode route, none on the
-    CUDA-core route."""
+    CUDA-core route.  A DeepSeek-V3 layer's seven are its attention's four
+    and its dense MLP's or shared expert's three: the router is fp32 and
+    never quantized, and the expert stacks are dequantized and multiplied
+    by ``torch.matmul``."""
     return {"fp8_matmul_wgmma": 7 * n_layers * stats["prefill_calls"],
             "fp8_matmul_decode": (7 * n_layers + 1) * stats["decode_steps"]
             + stats["prefill_calls"],
@@ -2931,20 +2937,6 @@ def ssm_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
     ssm_small_agreement(torch, seed)
 
 
-def moe_serve_launches(stats: dict, n_layers: int) -> dict:
-    """The fp8 routes' launches a bf16 serve of a DeepSeek-V3 tree makes:
-    seven block-128 products a layer (four of attention, then the dense
-    prefix's MLP or the MoE layer's shared expert), prefill rows on the
-    wgmma route and decode rows on the decode route, and the LM head on the
-    decode route once a decode step and once a prefill call; nothing on
-    the CUDA-core route: the router is fp32 and never quantized, and the
-    expert stacks are dequantized and multiplied by ``torch.matmul``."""
-    return {"fp8_matmul_wgmma": 7 * n_layers * stats["prefill_calls"],
-            "fp8_matmul_decode": (7 * n_layers + 1) * stats["decode_steps"]
-            + stats["prefill_calls"],
-            "fp8_matmul": 0}
-
-
 def routing_recorder(torch, sink: list, keep: bool = False):
     """Wrap ``repro_torch.models.moe.top_k_routing`` so each call appends
     ``(tokens, assignments dispatched)`` to ``sink`` (``keep``: the dispatch
@@ -2972,18 +2964,13 @@ def moe_kernel_checks(torch, g) -> None:
     expert's [7168,2048], each against its plain version and timed beside
     its bound and cuBLAS."""
     from repro_torch.kernels.fp8_matmul.kernel import matmul_fp8_decode, matmul_fp8_wgmma
-
-    def weights(I, O):
-        wp = (torch.randn((I, O), generator=g, device="cuda") * 0.02).bfloat16().float()
-        wb = (wp + torch.randn((I, O), generator=g, device="cuda") * 2e-4).bfloat16().float()
-        return wp, wb
-
     for K, N in ((7168, 7168), (7168, 896), (7168, 2048), (2048, 7168), (7168, 129280)):
         for name, run, M in (("fp8_matmul_decode", matmul_fp8_decode, SLOTS),
                              ("fp8_matmul_wgmma", matmul_fp8_wgmma, 512)):
             check_matmul(torch, f"{name} (moe phase)", run, MatmulCase(torch, g, M, K, N),
                          time_it=True)
             torch.cuda.empty_cache()
+    weights = delta_weights(torch, g)
     check_sweeps(torch, weights, None, None, cases=(((7168, 2048), 11, 128, 448.0, True),))
     check_quantizer(torch, weights, cases=(((7168, 2048), 128, True, 0),))
 
@@ -3004,7 +2991,7 @@ def stacked_dequantize_check(torch, qt) -> None:
                                  get_format(one.fmt), one.block_size, torch.float32)
         bad += int((got[e].view(torch.int16) != want.bfloat16().view(torch.int16)).sum())
     log(f"moe phase: the expert stack {list(one.shape)} dequantized to bf16 in one pass, "
-        f"against the per-matrix fp32 dequantize cast: {bad} differing bits at 4 experts "
+        f"against the per-matrix fp32 dequantize cast: {bad} values differ at 4 experts "
         f"-> {'ok' if bad == 0 else 'FAIL'}")
     if bad:
         raise AssertionError("moe phase: the stacked dequantize differs from the per-matrix one")
@@ -3128,7 +3115,7 @@ def moe_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
     cuda = torch.device(device).type == "cuda"
     cfg = dataclasses.replace(get_arch("deepseek-v3"), n_layers=MOE_LAYERS)
     if 2 >= TC_MIN_ROWS or SLOTS >= TC_MIN_ROWS:
-        raise AssertionError("moe_serve_launches counts a prefill's LM head and every decode "
+        raise AssertionError("fp8_serve_launches counts a prefill's LM head and every decode "
                              f"product on the decode route: groups of 2 and SLOTS must stay "
                              f"below {TC_MIN_ROWS}")
     log(f"moe phase: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
@@ -3220,7 +3207,7 @@ def moe_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
                              f"leaf-matrices), expected {want_leaves} ({want_n})")
     passes = len(sweep_plan(1 + qcfg.n_coarse)) + len(sweep_plan(1 + qcfg.n_fine))
     want = {"scale_search": passes * n, "fp8_quant": n,
-            **moe_serve_launches(stats, cfg.n_layers)}
+            **fp8_serve_launches(stats, cfg.n_layers)}
     if stats["prefill_calls"] != len(set(MOE_LENS)):
         raise AssertionError(f"moe phase: {stats['prefill_calls']} prefill calls, expected "
                              f"one per prompt length ({len(set(MOE_LENS))})")

@@ -64,7 +64,6 @@ from repro_torch.quant_runtime.qparams import QuantizedTensor
 from repro_torch.quantize import quantize
 
 TOL = 2e-2
-BF16_ULP = 2.0 ** -7      # bf16's spacing relative to the value's power of two
 # (numpy seed, length): three distinct lengths, one repeated
 PROMPTS = [(6, 33), (47, 40), (18, 45), (51, 40)]
 LENS = [L for _, L in PROMPTS]
@@ -168,10 +167,9 @@ def _record_routing(monkeypatch, replay: bool = False):
 
 def test_layer_plan_and_cache_layout_match_reference(bf16):
     ref_model, rp, model, params = bf16
-    for cfg in (ref_get_arch("deepseek-v3"), ref_reduced(ref_get_arch("deepseek-v3"))):
-        port_cfg = get_arch(cfg.name) if "smoke" not in cfg.name else model.cfg
-        assert TL.layer_plan(port_cfg) == RL.layer_plan(cfg)
-    assert TL.layer_plan(model.cfg) == ([("attn", "mlp_dense")], 1, [("attn", "moe")], 3)
+    assert TL.layer_plan(get_arch("deepseek-v3")) == RL.layer_plan(ref_get_arch("deepseek-v3"))
+    assert TL.layer_plan(model.cfg) == RL.layer_plan(ref_model.cfg) == (
+        [("attn", "mlp_dense")], 1, [("attn", "moe")], 3)
     assert [(k, s, n) for k, s, n in model.groups] == [("prefix", ("attn", "mlp_dense"), 1),
                                                        ("stack", ("attn", "moe"), 3)]
     shapes = lambda t: {"/".join(p): tuple(v.shape) for p, v in tree_leaves_with_path(t)}
@@ -226,8 +224,8 @@ def test_apply_moe_matches_reference(f32, full_capacity):
     assert (err <= 1e-5 * np.abs(r).max() + _bf16_ulp(r) * (err > 1e-5 * np.abs(r).max())).all()
     assert np.mean(err > 1e-5 * np.abs(r).max()) < 1e-3
     assert abs(float(taux) - float(raux)) <= 1e-6 * cfg.router_aux_loss * 8
-    _, cap = TM._group_tokens(120), TM.capacity(model.cfg, 120, full_capacity)
-    assert cap == (240 if full_capacity else 40)
+    assert TM._group_tokens(120) == 120
+    assert TM.capacity(model.cfg, 120, full_capacity) == (240 if full_capacity else 40)
 
 
 # ---------------------------------------------------------------------------
@@ -534,8 +532,7 @@ def test_moe_engine_matches_reference_engine_and_host_loop(bf16):
                  len(ref))
         assert out[:n] == ref[:n]
         held += n
-    print("HELD", held)
-    assert held >= 12, held
+    assert held >= 12, held      # 14 of 24 at these draws
     assert outs == serve_host_loop(model, params, prompts, batch=4, gen_tokens=6, cache_len=64)
     # a refill of two slots scatters both groups into a live cache
     more = prompts + [_prompt(60, 33), _prompt(61, 45)]
