@@ -2959,12 +2959,14 @@ def routing_recorder(torch, sink: list, keep: bool = False):
 def moe_kernel_checks(torch, g) -> None:
     """The two tensor-core routes at the DeepSeek-V3 layer's widths (wq and
     wo [7168,7168], wk / wv [7168,896], the shared expert's [7168,2048] and
-    [2048,7168], the LM head [7168,129280]) at a decode step's M = 8 and a
+    [2048,7168], the dense prefix's w_gate / w_up [7168,18432] and w_down
+    [18432,7168], the LM head [7168,129280]) at a decode step's M = 8 and a
     prefill's M = 512, and the sweep (11 candidates) and the quantizer at an
     expert's [7168,2048], each against its plain version and timed beside
     its bound and cuBLAS."""
     from repro_torch.kernels.fp8_matmul.kernel import matmul_fp8_decode, matmul_fp8_wgmma
-    for K, N in ((7168, 7168), (7168, 896), (7168, 2048), (2048, 7168), (7168, 129280)):
+    for K, N in ((7168, 7168), (7168, 896), (7168, 2048), (2048, 7168), (7168, 18432),
+                 (18432, 7168), (7168, 129280)):
         for name, run, M in (("fp8_matmul_decode", matmul_fp8_decode, SLOTS),
                              ("fp8_matmul_wgmma", matmul_fp8_wgmma, 512)):
             check_matmul(torch, f"{name} (moe phase)", run, MatmulCase(torch, g, M, K, N),

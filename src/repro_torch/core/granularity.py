@@ -93,8 +93,49 @@ def quantize_store(w: torch.Tensor, scale: torch.Tensor, granularity: str, fmt: 
 def dequantize_stored(q: torch.Tensor, scale: torch.Tensor, granularity: str, fmt: Format,
                       block_size: int = 128,
                       out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """Dequantize a stored representation back to floats."""
+    """Dequantize a stored representation back to floats: the fp32 product
+    of codes and scales rounded once to ``out_dtype``.  Float codes on whole
+    blocks (leading axes allowed, the scales' ``[..., I/bs, 1, O/bs, 1]``)
+    take one copy into the output, where every code is exact, and one
+    in-place multiply by the scales: no fp32 temporary on the card."""
     if granularity in ("tensor", "channel"):
         return dequantize(q, scale, fmt, out_dtype)
-    qp, orig = pad_to_blocks(q.float(), block_size)
-    return from_blocked(to_blocked(qp, block_size) * scale, orig).to(out_dtype)
+    (i, o), bs = q.shape[-2:], block_size
+    if q.dtype.is_floating_point and not (i % bs or o % bs):
+        out = torch.empty(q.shape, dtype=out_dtype, device=q.device).copy_(q)
+        out.view(*q.shape[:-2], i // bs, bs, o // bs, bs).mul_(scale)
+        return out
+    qp, orig = pad_to_blocks(q.float(), bs)
+    return from_blocked(to_blocked(qp, bs) * scale, orig).to(out_dtype)
+
+
+def dequantize_leaf(q: torch.Tensor, scale: torch.Tensor, granularity: str, fmt: Format,
+                    block_size: int = 128, out_dtype: torch.dtype = torch.bfloat16,
+                    eq_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """A stored leaf ``q [..., I, O]`` dequantized to ``out_dtype``; its
+    scales and its equalization vector ``eq_scale [..., I]`` (which divides
+    the fp32 rows before the cast) carry the same leading axes.  A stack on
+    whole float blocks is one ``dequantize_stored`` call; any other stack is
+    written matrix by matrix into one output, so no second copy of it and
+    no fp32 copy of it is ever live."""
+    lead, (i, o), bs = q.shape[:-2], q.shape[-2:], block_size
+    if eq_scale is None and (not lead or granularity == "block" and q.dtype.is_floating_point
+                             and not (i % bs or o % bs)):
+        return dequantize_stored(q, scale, granularity, fmt, bs, out_dtype)
+    if not lead:
+        return unequalize(dequantize_stored(q, scale, granularity, fmt, bs, torch.float32),
+                          eq_scale).to(out_dtype)
+    out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
+    n = out.numel() // (i * o)
+    qs, ss = q.reshape(n, i, o), scale.reshape(n, *scale.shape[len(lead):])
+    es = None if eq_scale is None else eq_scale.reshape(n, i)
+    for m, dst in enumerate(out.view(n, i, o)):
+        dst.copy_(dequantize_leaf(qs[m], ss[m], granularity, fmt, bs, out_dtype,
+                                  None if es is None else es[m]))
+    return out
+
+
+def unequalize(w: torch.Tensor, eq_scale: torch.Tensor) -> torch.Tensor:
+    """fp32 rows ``w [I, O]`` divided by the equalization vector ``[I]``: a
+    true division, as the reference's (eager) ``w / e[:, None]`` is."""
+    return w / eq_scale.float()[:, None]

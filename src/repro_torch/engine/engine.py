@@ -90,7 +90,6 @@ from repro_torch.engine.prefix import PrefixIndex
 from repro_torch.engine.sampler import SamplingParams, sample
 from repro_torch.engine.scheduler import init_slot_state, make_decode_dispatch
 from repro_torch.engine.spec import DepthController
-from repro_torch.models.lm import stacked_groups
 from repro_torch.telemetry.counters import (COUNTER_KEYS, bump, counter_totals,
                                             init_counters)
 
@@ -213,11 +212,11 @@ class Engine:
 
     # -- batched prefill + admission ------------------------------------------
 
-    @staticmethod
-    def _scatter(cache, state, part, slots, first, rem0):
-        """Write ``part``'s rows (batch axis 1 under the layer axis) into the
-        live cache at ``slots`` and arm the slot state, in place."""
-        for grp in stacked_groups(cache):
+    def _scatter(self, cache, state, part, slots, first, rem0):
+        """Write ``part``'s rows (batch axis 1 under the layer axis) of every
+        stacked group into the live cache at ``slots`` and arm the slot
+        state, in place."""
+        for grp, _, _ in self.model.groups:
             for name, full in cache[grp]["L0"].items():
                 full[:, slots] = part[grp]["L0"][name].to(full.dtype)
         cache["lengths"][slots] = part["lengths"]

@@ -14,7 +14,6 @@ import torch
 
 from repro_torch.engine.sampler import SamplingParams, sample
 from repro_torch.engine.scheduler import make_decode_step
-from repro_torch.models.lm import stacked_groups
 
 
 @torch.no_grad()
@@ -25,7 +24,7 @@ def single_slot_prefill(model, params, cache, tokens_row, slot: int, cache_len: 
     cache rows and length into the slot, in place.  Returns (last-token
     logits [V], cache)."""
     logits, one = model.prefill(params, {"tokens": tokens_row[None]}, cache_len=cache_len)
-    for grp in stacked_groups(cache):
+    for grp, _, _ in model.groups:
         for name, full in cache[grp]["L0"].items():
             full[:, slot] = one[grp]["L0"][name][:, 0].to(full.dtype)
     cache["lengths"][slot] = one["lengths"][0]

@@ -32,9 +32,10 @@ reference, with the same checks and messages, and one more, ``--device``
   A 9) exits with a message, and so do ``--paged`` (with ``--chunk-size``,
   ``--prefix-cache``, ``--spec-draft``) on an SSM arch (``mamba2-780m``)
   or an MoE arch (``deepseek-v3``), which serve on the contiguous engine
-  only (ROADMAP Queue A 5), and ``--method smoothquant`` / ``awq`` on an
-  MoE arch (their calibration forward runs no MoE layer yet); the reference's ``compiles:`` line (its jit cache sizes) has
-  no counterpart, since the port compiles nothing at serve time.
+  only (ROADMAP Queue A 5), and ``--daq --method smoothquant`` / ``awq`` on
+  an MoE arch (their calibration forward runs no MoE layer yet); the
+  reference's ``compiles:`` line (its jit cache sizes) has no counterpart,
+  since the port compiles nothing at serve time.
 
 Usage (CPU-scale):
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch glm4-9b --reduced \\
@@ -258,6 +259,12 @@ def main(argv: list[str] | None = None):
         refuse_unported(cfg, ecfg)
     except NotImplementedError as e:
         raise SystemExit(f"{cfg.name}: {e}")
+    if args.daq and cfg.family == "moe":
+        from repro_torch.quantize import available_methods, get_method
+        if args.method in available_methods() and get_method(args.method).requires_calibration:
+            raise SystemExit(f"{cfg.name}: --method {args.method} calibrates on a "
+                             f"full-sequence forward, which runs no MoE layer yet "
+                             f"(ROADMAP Queue A 5)")
     model = build_model(cfg, device=args.device)
     dev = model.device
     params = model.init(torch.Generator(device=dev).manual_seed(0))

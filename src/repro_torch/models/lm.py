@@ -374,12 +374,6 @@ def run_stack_train(stack: dict, x, cfg: ModelConfig, remat: str = "full"):
     return x
 
 
-def stacked_groups(tree: dict) -> list[str]:
-    """The stacked subtrees of a param or cache tree, in the order a forward
-    runs them: the MoE dense prefix (``"prefix"``), then ``"stack"``."""
-    return [k for k in ("prefix", "stack") if k in tree]
-
-
 class Model:
     """Dense decoder, Mamba-2 or MoE stack: ``init``, ``loss_fn``,
     ``init_cache``, ``prefill``, ``decode_step`` with the reference

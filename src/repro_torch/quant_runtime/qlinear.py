@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.quant_runtime.qparams import QuantizedTensor, unequalize
+from repro_torch.core.granularity import unequalize
+from repro_torch.quant_runtime.qparams import QuantizedTensor
 
 # Calibration hook: when set to a list, every matmul appends
 # (weight_shape, weight_fingerprint, per-in-channel |x| max) -- the

@@ -23,7 +23,7 @@ from dataclasses import dataclass, field
 import torch
 
 from repro_torch.core.formats import get_format
-from repro_torch.core.granularity import dequantize_stored
+from repro_torch.core.granularity import dequantize_leaf
 
 
 @dataclass
@@ -77,37 +77,10 @@ class QuantizedTensor:
         """The weights ``q * scale`` (``/ eq_scale``) in ``out_dtype``, or in
         ``dtype``: the fp32 values rounded once to it, which is
         ``dequantize().to(dtype)`` bit for bit when ``out_dtype`` is
-        float32 or ``dtype`` itself.  A stacked leaf is written matrix by
-        matrix into one preallocated output, so no second copy of the stack
-        is ever live."""
-        out_dtype = dtype or getattr(torch, self.out_dtype)
-        if self.data.ndim > 2:
-            out = torch.empty(self.data.shape, dtype=out_dtype, device=self.data.device)
-            self._dequantize_into(out)
-            return out
-        if self.eq_scale is None:
-            return dequantize_stored(self.data, self.scale, self.granularity,
-                                     get_format(self.fmt), self.block_size, out_dtype)
-        return unequalize(dequantize_stored(self.data, self.scale, self.granularity,
-                                            get_format(self.fmt), self.block_size,
-                                            torch.float32),
-                          self.eq_scale).to(out_dtype)
-
-    def _dequantize_into(self, out: torch.Tensor) -> None:
-        """Write the dequantized weights into ``out`` (a float dtype)."""
-        if self.granularity == "block" and self.eq_scale is None and self.grid is None \
-                and self.fmt.startswith("fp8"):
-            # every fp8 code is exact in bf16 / fp16 / fp32, and the product
-            # is taken in fp32 and rounded once on the store: the bits of
-            # dequantize_stored, with no fp32 temporary of the stack
-            bs, (i, o) = self.block_size, self.data.shape[-2:]
-            out.copy_(self.data)
-            out.view(*self.data.shape[:-2], i // bs, bs, o // bs, bs).mul_(self.scale)
-        elif self.data.ndim > 2:
-            for n in range(self.data.shape[0]):
-                self.layer(n)._dequantize_into(out[n])
-        else:
-            out.copy_(self.dequantize(out.dtype))
+        float32 or ``dtype`` itself (``dequantize_leaf``)."""
+        return dequantize_leaf(self.data, self.scale, self.granularity, get_format(self.fmt),
+                               self.block_size, dtype or getattr(torch, self.out_dtype),
+                               self.eq_scale)
 
     def nbytes(self) -> int:
         n = self.data.numel() * get_format(self.fmt).bits // 8 + self.scale.numel() * 4
@@ -115,8 +88,3 @@ class QuantizedTensor:
             n += self.eq_scale.numel() * 4
         return n
 
-
-def unequalize(w: torch.Tensor, eq_scale: torch.Tensor) -> torch.Tensor:
-    """fp32 rows ``w [I, O]`` divided by the equalization vector ``[I]``: a
-    true division, as the reference's (eager) ``w / e[:, None]`` is."""
-    return w / eq_scale.float()[:, None]

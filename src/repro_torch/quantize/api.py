@@ -27,10 +27,10 @@ import torch
 from repro_torch.configs.base import QuantConfig
 from repro_torch.core import metrics as M
 from repro_torch.core.formats import get_format
-from repro_torch.core.granularity import dequantize_stored
+from repro_torch.core.granularity import dequantize_leaf
 from repro_torch.core.policy import path_str, should_quantize, tree_leaves_with_path
 from repro_torch.core.search import SearchResult
-from repro_torch.quant_runtime.qparams import QuantizedTensor, unequalize
+from repro_torch.quant_runtime.qparams import QuantizedTensor
 from repro_torch.quantize.registry import get_method
 
 _METRICS = ("mse", "sign_rate", "cosine", "delta_l2")
@@ -107,27 +107,8 @@ def _rebuild(tree: Any, leaves) -> Any:
 def _dequantized(res: SearchResult, qcfg: QuantConfig, dtype: torch.dtype) -> torch.Tensor:
     """The dequantized weights ``Q_s(W)``; an equalized leaf's are
     ``Q_s(W * e) / e`` in fp32, then cast, as the reference's ``w_dq`` is."""
-    fmt = get_format(qcfg.fmt)
-
-    def deq(q, s, e):
-        if e is None:
-            return dequantize_stored(q, s, qcfg.granularity, fmt, qcfg.block_size, dtype)
-        return unequalize(dequantize_stored(q, s, qcfg.granularity, fmt, qcfg.block_size,
-                                            torch.float32), e).to(dtype)
-
-    eq = res.eq_scale
-    if res.w_q.ndim == 2:
-        return deq(res.w_q, res.scale, eq)
-    # each matrix written into one preallocated output: no second copy of
-    # the stack is live
-    out = torch.empty(res.w_q.shape, dtype=dtype, device=res.w_q.device)
-    flat = out.view(-1, *out.shape[-2:])
-    q = res.w_q.reshape(flat.shape)
-    s = res.scale.reshape(flat.shape[0], *res.scale.shape[res.w_q.ndim - 2:])
-    e = None if eq is None else eq.reshape(flat.shape[0], -1)
-    for i in range(flat.shape[0]):
-        flat[i] = deq(q[i], s[i], None if e is None else e[i])
-    return out
+    return dequantize_leaf(res.w_q, res.scale, qcfg.granularity, get_format(qcfg.fmt),
+                           qcfg.block_size, dtype, res.eq_scale)
 
 
 def quantize(params_post: Any, params_base: Any = None,

@@ -26,10 +26,9 @@ import torch
 from repro_torch.configs.base import QuantConfig
 from repro_torch.core import metrics as M
 from repro_torch.core.formats import Format, get_format
-from repro_torch.core.granularity import absmax, dequantize_stored, quantize_store
+from repro_torch.core.granularity import absmax, dequantize_stored, quantize_store, unequalize
 from repro_torch.core.search import SearchResult, metrics_and_partials
 from repro_torch.quant_runtime import qlinear
-from repro_torch.quant_runtime.qparams import unequalize
 from repro_torch.quantize.api import LeafContext, Quantizer
 from repro_torch.quantize.registry import register
 

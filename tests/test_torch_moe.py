@@ -458,17 +458,24 @@ def _stored(shape, gran, bs, seed, eq=False):
     ((2, 64, 96), "block", 32, True)], ids=["4d", "3d", "ragged", "channel", "equalized"])
 def test_stacked_dequantize_bits_unchanged(shape, gran, bs, eq):
     """A stacked leaf dequantizes into one preallocated output: the bits of
-    the per-matrix ``dequantize_stored`` stacked, in float32 and straight
+    each matrix's plain fp32 product stacked, in float32 and straight
     to bf16 (``qlinear.resolve_as``: the fp32 values rounded once), and
     ``quantize(mode="dequant")``'s stacked output the same way."""
     qt = _stored(shape, gran, bs, seed=len(shape) + bs, eq=eq)
-    fmt = get_format(qt.fmt)
     flat_q = qt.data.reshape(-1, *shape[-2:])
     flat_s = qt.scale.reshape(flat_q.shape[0], *qt.scale.shape[len(shape) - 2:])
     flat_e = None if qt.eq_scale is None else qt.eq_scale.reshape(flat_q.shape[0], -1)
 
     def old(i):
-        w = dequantize_stored(flat_q[i], flat_s[i], gran, fmt, bs, torch.float32)
+        """The matrix's codes times its scales in fp32 (divided by its
+        equalization vector), written out plainly."""
+        q, (I, O) = flat_q[i].float(), shape[-2:]
+        if gran == "block":
+            qp = torch.nn.functional.pad(q, (0, -O % bs, 0, -I % bs))
+            w = (qp.reshape(qp.shape[0] // bs, bs, qp.shape[1] // bs, bs) * flat_s[i]) \
+                .reshape(qp.shape)[:I, :O]
+        else:
+            w = q * flat_s[i]
         return w if flat_e is None else w / flat_e[i][:, None]
     want = torch.stack([old(i) for i in range(flat_q.shape[0])]).reshape(shape)
     got = qt.dequantize()
@@ -566,3 +573,6 @@ def test_cli_serves_moe_on_the_contiguous_engine_and_refuses_paged(capsys):
     assert stats["prefill_calls"] == 2
     with pytest.raises(SystemExit, match="deepseek-v3-smoke: .*MoE paths.*Queue A 5"):
         cli.main(argv + ["--paged"])
+    for method in ("smoothquant", "awq"):   # refused before any weights are made
+        with pytest.raises(SystemExit, match=f"deepseek-v3-smoke: --method {method} .*Queue A 5"):
+            cli.main(argv + ["--daq", "--method", method])
