@@ -22,10 +22,14 @@ Phases:
      plain versions on the card and on the CPU (the sweep's sign counts
      also on a tile of denormal deltas, which count as 0 as in the
      reference); the fp8 matmul has three
-     routes (decode and prefill on the tensor cores for bf16 x and block
-     128, the CUDA-core kernel for every other operand pair), each checked,
-     and all timed with cold weights on device time across M, beside
-     cuBLAS bf16;
+     routes (decode and prefill on the tensor cores for bf16, fp16 and
+     fp32 x at every quant block that is a multiple of 16, the CUDA-core
+     kernel for the other blocks), each checked (the tensor-core routes at
+     blocks 16, 32, 64, 96, 256 and 512 with every x type at M = 1 to 1,024,
+     K and N off the 128 grid, every finite code, fp32 x near 1e-30 and
+     3e38; the CUDA-core kernel at blocks 8, 40 and 66), and timed with
+     cold weights on device time across M, beside cuBLAS bf16, the plain
+     version and the CUDA-core kernel at the same shape;
   4. make full-width GLM-4-9B weights from a seeded ``torch.Generator``
      (base = post + Gaussian noise at 1 % of each matrix's std);
   5. quantize: ``quantize(post, base, QuantConfig(use_fused_kernel=True),
@@ -40,8 +44,10 @@ Phases:
      decode product and LM head, the CUDA-core route never; check the
      outputs: token ranges, report sanity, a small bf16 model whose GPU run
      (kernels, the wgmma route included) agrees with its CPU run (plain
-     versions), and a small float32 model, the CUDA-core route's own path,
-     whose GPU run agrees with its CPU run to fp32 tolerance;
+     versions), a small float32 model at block 64 (fp32 and fp16 x on the
+     tensor-core routes) whose GPU run agrees with its CPU run to fp32
+     tolerance, and a small model at block 8, the CUDA-core route's own
+     path;
   7b. the paged KV cache (``paged_phase``): 16 requests of 16-496 prompt
      tokens through the contiguous engine and two paged serves of the same
      ``qparams`` at ``cache_len`` 560: at capacity parity the greedy tokens
@@ -152,6 +158,14 @@ Phases:
      model on fp32 activations, card against CPU: routing equal, logits
      within 1e-3 of their scale, greedy tokens equal
      (``moe_small_agreement``);
+  7l. quant block 64 (``block64_phase``, after 7e): phase 4's weights
+     DAQ-quantized at block 64 and served phase 6's 8 requests through
+     ``Engine(slots=8, k_steps=8)``: the sweep's and the quantizer's
+     launches, the wgmma route 7 x layers a prefill call, the decode route
+     7 x layers + 1 a decode step and 1 a prefill call, the CUDA-core route
+     none; quantize seconds, peak GB, tok/s, a decode step and a prefill
+     broken down, and the greedy tokens' agreement with phase 6's block-128
+     serve (a reading, not asserted);
   8. break one decode step, one prefill and one quantize (GLM-4-9B cut to
      4 layers at full width) down: host time, device busy time, kernel
      launches, the decode route's device time and the kernels that take
@@ -486,6 +500,8 @@ def check_kernels(torch, seed: int, sass: dict | None, clock_mhz: float | None) 
 
     torch.cuda.empty_cache()
     records.update(check_matmul_routes(torch, g))
+    check_general_routes(torch, g)
+    time_general_routes(torch, g)
     crossover(torch, g)
     torch.cuda.empty_cache()
     return records
@@ -780,11 +796,28 @@ class MatmulCase:
         return [lambda w=w: torch.matmul(x, w) for w in self.deq()]
 
 
+def matmul_times(torch, run, case) -> dict:
+    """Cold device times of ``run``, the plain version and cuBLAS bf16 on
+    ``case``, and the bound: bytes of codes, scales, x and y over the HBM
+    rate, or operations at the bf16 tensor-core peak (three passes for fp32
+    x on the tensor-core routes: ``split_bf16``'s parts)."""
+    from repro_torch.kernels.fp8_matmul.kernel import route
+    from repro_torch.kernels.fp8_matmul.ref import matmul_fp8_ref
+    M, K, N, bs = case.M, case.K, case.N, case.block
+    passes = 3 if case.x.dtype == torch.float32 and route(
+        M, N, K, bs, case.x.dtype) != "cuda_core" else 1
+    b_ms, b_by = bound(matmul_bytes(M, K, N, bs, case.x.element_size()),
+                       passes * 2 * M * K * N, BF16_FLOPS)
+    return dict(ms=device_ms(torch, case.calls(run)),
+                plain_ms=device_ms(torch, case.calls(matmul_fp8_ref), reps=len(case.w)),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=device_ms(torch, case.library_calls(torch)))
+
+
 def check_matmul(torch, name, run, case, *, time_it=False) -> dict:
     """``run`` against the plain version on copy 0 of ``case``: |err| <=
     1e-4 |plain| + 1e-5 max|plain| (fp32 sums in another order; bf16 x bf16
-    products are exact in fp32).  With ``time_it``, cold device times of the
-    kernel, the plain version and cuBLAS bf16."""
+    products are exact in fp32).  With ``time_it``, ``matmul_times``."""
     from repro_torch.kernels.fp8_matmul.ref import matmul_fp8_ref
     M, K, N, bs = case.M, case.K, case.N, case.block
     wq, sc = case.w[0]
@@ -796,16 +829,27 @@ def check_matmul(torch, name, run, case, *, time_it=False) -> dict:
                                                   + 1e-5 * yp.abs().max()).all())
     rec = dict(max_abs_err=float(err.max()))
     if time_it:
-        b_ms, b_by = bound(matmul_bytes(M, K, N, bs, case.x.element_size()), 2 * M * K * N,
-                           BF16_FLOPS)
-        rec.update(ms=device_ms(torch, case.calls(run)),
-                   plain_ms=device_ms(torch, case.calls(matmul_fp8_ref), reps=len(case.w)),
-                   bound_ms=b_ms, bound_by=b_by,
-                   library_ms=device_ms(torch, case.library_calls(torch)))
+        rec.update(matmul_times(torch, run, case))
     log(f"kernel-check {name} M={M} [{K},{N}] x {str(case.x.dtype)[6:]} block {bs}: -> "
         f"{'ok' if ok else 'FAIL'}; " + json.dumps(rec))
     if not ok:
         raise AssertionError(f"{name} kernel disagrees at M={M} [{K},{N}] block {bs}")
+    return rec
+
+
+def check_routed(torch, case, want: str) -> dict:
+    """``kernel.matmul_fp8_cuda`` (``route``'s kernel; fp32 x split into
+    three bf16 parts) on ``case`` against the plain version
+    (``check_matmul``), and its one launch on the kernel named ``want``."""
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.kernels.fp8_matmul.kernel import matmul_fp8_cuda
+    before = {k.name: k.launches for k in KERNELS}
+    rec = check_matmul(torch, f"{want} (routed)", matmul_fp8_cuda, case)
+    got = {k.name: k.launches - before[k.name] for k in KERNELS
+           if k.launches != before[k.name]}
+    if got != {want: 1}:
+        raise AssertionError(f"route: M={case.M} [{case.K},{case.N}] block {case.block} "
+                             f"{case.x.dtype} launched {got}, expected one {want}")
     return rec
 
 
@@ -818,7 +862,7 @@ def check_matmul_routes(torch, g) -> dict:
     from repro_torch.kernels.fp8_matmul.kernel import (matmul_fp8_cuda_core,
                                                        matmul_fp8_decode, matmul_fp8_wgmma)
     records = {}
-    f32, f16 = torch.float32, torch.float16
+    f32, f16, bf16 = torch.float32, torch.float16, torch.bfloat16
     # decode route (bf16 x, M < 16): the slots' rows at every decode width
     # and the LM head, ragged M, and weights whose tiles hold every finite
     # code (64- and 128-column blocks)
@@ -837,19 +881,15 @@ def check_matmul_routes(torch, g) -> dict:
     for M, (K, N) in ((SLOTS, (512, 384)), (15, (512, 33792))):
         check_matmul(torch, "fp8_matmul_decode (all finite codes)", matmul_fp8_decode,
                      MatmulCase(torch, g, M, K, N, all_codes=True, timed=False))
-    # CUDA-core route: what the tensor-core routes do not take (fp32 and
-    # fp16 x, blocks 64 and 512), and its M = 8 bf16 time for comparison
+    # CUDA-core route: its M = 8 bf16 time beside the tensor-core routes';
+    # through route(), the blocks that are not multiples of 16, all x types
     records["fp8_matmul"] = check_matmul(
         torch, "fp8_matmul", matmul_fp8_cuda_core, MatmulCase(torch, g, SLOTS, 4096, 13696),
         time_it=True)
-    for x_dtype in (f32, f16):
-        check_matmul(torch, "fp8_matmul", matmul_fp8_cuda_core,
-                     MatmulCase(torch, g, SLOTS, 4096, 4096, x_dtype=x_dtype, timed=False))
-    for block in (64, 512):
-        check_matmul(torch, "fp8_matmul", matmul_fp8_cuda_core,
-                     MatmulCase(torch, g, SLOTS, 1024, 1536, block=block, timed=False))
-    check_matmul(torch, "fp8_matmul", matmul_fp8_cuda_core,
-                 MatmulCase(torch, g, 200, 512, 384, x_dtype=f32, block=64, timed=False))
+    for M, (K, N), block, x_dtype in ((SLOTS, (512, 384), 8, bf16), (SLOTS, (1040, 1600), 40, f32),
+                                      (200, (660, 1320), 66, f16), (SLOTS, (660, 1320), 66, f32)):
+        check_routed(torch, MatmulCase(torch, g, M, K, N, block=block, x_dtype=x_dtype,
+                                       timed=False), "fp8_matmul")
     # prefill route (M >= 16): the prompt rows at every main-path width,
     # and ragged M at a small width from the route's threshold up
     prefill = SLOTS * PROMPT
@@ -863,6 +903,82 @@ def check_matmul_routes(torch, g) -> dict:
         check_matmul(torch, "fp8_matmul_wgmma", matmul_fp8_wgmma,
                      MatmulCase(torch, g, M, 512, 384, timed=False))
     return records
+
+
+# The tensor-core routes at quant blocks other than 128 (each at a K and N
+# off the 128 grid where the block allows), x types and rows of x
+GENERAL_SHAPES = {16: (1040, 1552), 32: (1056, 1568), 64: (1088, 1600), 96: (1056, 1632),
+                  256: (1280, 1792), 512: (1536, 2560)}
+GENERAL_ROWS = (1, 5, 8, 15, 16, 17, 1024)
+# the timed ones: (block, x type) at a decode step's M = 8, a prefill's
+# 1,024 rows of [4096,13696] and the LM head at M = 8
+GENERAL_TIMED = ((64, "bfloat16"), (32, "bfloat16"), (128, "float16"), (128, "float32"))
+TIMED_SHAPES = ((SLOTS, 4096, 13696), (SLOTS * PROMPT, 4096, 13696), (SLOTS, 4096, 151552))
+ROUTE_KERNEL = {"decode": "fp8_matmul_decode", "wgmma": "fp8_matmul_wgmma",
+                "cuda_core": "fp8_matmul"}
+
+
+def check_general_routes(torch, g) -> None:
+    """The decode and wgmma instances for blocks other than 128 and for fp16
+    and fp32 x, through ``route`` and against the plain version: every
+    block of ``GENERAL_SHAPES`` with bf16, fp16 and fp32 x at every M of
+    ``GENERAL_ROWS``; [192,320] (K and N off the 64-column tile) and
+    [1088,1600] at block 64; weights whose tiles hold every finite E4M3
+    code; fp32 x with rows near 1e-30 and rows holding +-3e38 and
+    -2.5e38 (``split_bf16`` scales those by 2^-64)."""
+    from repro_torch.kernels.fp8_matmul.kernel import route
+    dtypes = (torch.bfloat16, torch.float16, torch.float32)
+
+    def check(M, K, N, bs, dt, x=None, all_codes=False):
+        case = MatmulCase(torch, g, M, K, N, block=bs, x_dtype=dt, all_codes=all_codes,
+                          timed=False)
+        if x is not None:
+            case.x = x
+        return check_routed(torch, case, ROUTE_KERNEL[route(M, N, K, bs, dt)])
+
+    n = 0
+    for bs, (K, N) in GENERAL_SHAPES.items():
+        for dt in dtypes:
+            for M in GENERAL_ROWS:
+                check(M, K, N, bs, dt)
+                n += 1
+    for M in (SLOTS, SLOTS * PROMPT):
+        for dt in dtypes:
+            check(M, 192, 320, 64, dt)
+            check(M, 1088, 1600, 64, dt)
+            check(M, 1024, 1536, 64, dt, all_codes=True)
+            n += 3
+    for M in (4, 64):
+        x = torch.randn((M, 1024), generator=g, device="cuda")
+        x[: M // 2] *= 1e-30
+        x[M // 2:, 7], x[M // 2:, 100] = 3e38, -2.5e38
+        for bs in (64, 128):
+            check(M, 1024, 1536, bs, torch.float32, x=x)
+            n += 1
+    log(f"general routes: {n} products through route() agree with the plain version")
+    torch.cuda.empty_cache()
+
+
+def time_general_routes(torch, g) -> None:
+    """Cold device times of the tensor-core routes at ``GENERAL_TIMED`` x
+    ``TIMED_SHAPES``, each beside its bound, cuBLAS bf16, the plain version
+    and the CUDA-core kernel at the same shape in the same call."""
+    from repro_torch.kernels.fp8_matmul.kernel import (join_bf16, matmul_fp8_cuda,
+                                                       matmul_fp8_cuda_core, split_bf16)
+    for bs, dt in GENERAL_TIMED:
+        for M, K, N in TIMED_SHAPES:
+            case = MatmulCase(torch, g, M, K, N, block=bs, x_dtype=getattr(torch, dt))
+            rec = check_matmul(torch, "general route (timed)", matmul_fp8_cuda, case)
+            rec.update(matmul_times(torch, matmul_fp8_cuda, case))
+            rec["cuda_core_ms"] = device_ms(torch, case.calls(matmul_fp8_cuda_core))
+            if dt == "float32":     # the split's and the join's share of ms
+                y3 = torch.empty((3 * M, N), device="cuda")
+                rec["split_join_ms"] = device_ms(
+                    torch, [lambda: join_bf16(y3, split_bf16(case.x)[1])])
+            log(f"general-route timing M={M} [{K},{N}] x {dt} block {bs} (cold device ms): "
+                + json.dumps(rec))
+            del case
+            torch.cuda.empty_cache()
 
 
 def crossover(torch, g) -> None:
@@ -1000,20 +1116,22 @@ def small_model_agreement(torch, seed: int) -> None:
 
 
 def fp32_model_agreement(torch, seed: int) -> dict:
-    """The CUDA-core route's own path: operands the tensor-core routes do not
-    take.  A small GLM-shaped model with ``dtype="float32"`` parameters over
+    """fp32 and fp16 x and a block other than 128 on the tensor-core routes.
+    A small GLM-shaped model with ``dtype="float32"`` parameters over
     block-64 fp8 weights (quantized once on the CPU) is prefilled and stepped
-    once on the CPU (plain versions) and on the GPU, where every product
-    takes the CUDA-core kernel.  Its activations are bf16 whatever the
-    parameters' type (``models/common.py::ACT_DTYPE``, as in the reference),
-    so its logits are held to the bf16 model's tolerance, 5 % of the largest.
-    Then each quantized linear of its first layer and its LM head takes fp32
-    x through ``ops.matmul_fp8`` and fp16 x through ``ops.matmul_fp8_2d`` on
-    both devices: |gpu - cpu| <= 1e-4 |cpu| + 1e-5 max|cpu| (fp32 sums in
-    another order).  Returns the kernels' launch counts of the GPU runs,
-    zeroed just before them."""
+    once on the CPU (plain versions) and on the GPU, where its prefill's
+    products take the wgmma route and its LM heads and decode step the decode
+    route.  Its activations are bf16 whatever the parameters' type
+    (``models/common.py::ACT_DTYPE``, as in the reference), so its logits are
+    held to the bf16 model's tolerance, 5 % of the largest.  Then each
+    quantized linear of its first layer and its LM head takes fp32 x (8
+    rows: 24 stacked bf16 rows, the wgmma route) through ``ops.matmul_fp8``
+    and fp16 x (the decode route) through ``ops.matmul_fp8_2d`` on both
+    devices: |gpu - cpu| <= 1e-4 |cpu| + 1e-5 max|cpu| (fp32 sums in another
+    order).  Returns the kernels' launch counts of the GPU runs, zeroed just
+    before them."""
     from repro_torch.configs import QuantConfig, get_arch
-    from repro_torch.kernels._lib import FP8_MATMUL, KERNELS
+    from repro_torch.kernels._lib import KERNELS
     from repro_torch.kernels.fp8_matmul import ops
     from repro_torch.models import build_model
     from repro_torch.quant_runtime.qparams import QuantizedTensor
@@ -1052,14 +1170,15 @@ def fp32_model_agreement(torch, seed: int) -> dict:
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in KERNELS}
 
-    want = 2 * (7 * cfg.n_layers + 1) + 2 * len(xs)
-    if launches[FP8_MATMUL.name] != want or sum(launches.values()) != want:
-        raise AssertionError(f"float32 model: launches {launches}, expected {want}, all "
-                             f"of {FP8_MATMUL.name}")
+    n = 7 * cfg.n_layers
+    want = {"fp8_matmul_wgmma": n + len(xs), "fp8_matmul_decode": 1 + (n + 1) + len(xs),
+            "fp8_matmul": 0}
+    if {k: launches[k] for k in want} != want or sum(launches.values()) != sum(want.values()):
+        raise AssertionError(f"float32 model: launches {launches}, expected {want}")
     for name, gpu, cpu in (("prefill", lg, lc), ("decode", dg, dc)):
         err = (gpu.float().cpu() - cpu.float()).abs().max().item()
         scale = cpu.float().abs().max().item()
-        log(f"float32-model agreement ({name}, block 64, CUDA-core route): logits max "
+        log(f"float32-model agreement ({name}, block 64, tensor-core routes): logits max "
             f"|gpu - cpu| = {err:.4g} (max |logit| {scale:.4g}, tolerance 5% of it)")
         if not err <= 0.05 * scale:
             raise AssertionError(f"float32 model: GPU and CPU {name} logits disagree")
@@ -1071,11 +1190,59 @@ def fp32_model_agreement(torch, seed: int) -> dict:
                 raise AssertionError(f"float32 model: product in {gpu.dtype}, expected {dtype}")
             err = (gpu - cpu).abs()
             worst = max(worst, float((err / (1e-4 * cpu.abs() + 1e-5 * cpu.abs().max())).max()))
-    log(f"float32-model agreement: {len(direct)} linears x fp32 and fp16 x on the CUDA-core "
-        f"route, worst |gpu - cpu| at {worst:.3f} of its tolerance; launches "
+    log(f"float32-model agreement: {len(direct)} linears x fp32 (wgmma) and fp16 (decode) x, "
+        f"worst |gpu - cpu| at {worst:.3f} of its tolerance; launches "
         f"{json.dumps(launches)}")
     if not worst <= 1.0:
         raise AssertionError("float32 model: GPU and CPU fp32 / fp16-x products disagree")
+    return launches
+
+
+def odd_block_agreement(torch, seed: int, block: int = 8) -> dict:
+    """The CUDA-core kernel's own path: a quant block that is not a multiple
+    of 16.  A small GLM-shaped bf16 model whose fp8 weights were quantized
+    once on the CPU at block 8 is prefilled (4 x 32 tokens) and stepped
+    once on the CPU (plain versions) and on the GPU, where every product
+    takes the CUDA-core kernel; logits within 5 % of the largest (bf16
+    activations, as ``small_model_agreement``).  Returns the kernels' launch
+    counts of the GPU run, zeroed just before it."""
+    from repro_torch.configs import QuantConfig, get_arch
+    from repro_torch.core.policy import tree_map
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.models import build_model
+    from repro_torch.quant_runtime.qparams import QuantizedTensor
+    from repro_torch.quantize import quantize
+    cfg = dataclasses.replace(get_arch("glm4-9b"), n_layers=2, d_model=256, n_heads=2,
+                              n_kv_heads=1, head_dim=128, d_ff=512, vocab_size=1024)
+    m_cpu, m_gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
+    g = torch.Generator().manual_seed(seed + 3)
+    post = m_cpu.init(g)
+    q_cpu, _ = quantize(post, make_base(torch, post, g),
+                        QuantConfig(use_fused_kernel=True, block_size=block), mode="storage")
+    q_gpu = tree_map(lambda t: dataclasses.replace(t, data=t.data.cuda(), scale=t.scale.cuda())
+                     if isinstance(t, QuantizedTensor) else t.cuda(), q_cpu)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 32), generator=g)
+    nxt = torch.randint(0, cfg.vocab_size, (4, 1), generator=g)
+    lc, cc = m_cpu.prefill(q_cpu, {"tokens": tokens}, cache_len=40)
+    dc, _ = m_cpu.decode_step(q_cpu, nxt, cc)
+    for k in KERNELS:
+        k.launches = 0
+    lg, cg = m_gpu.prefill(q_gpu, {"tokens": tokens.cuda()}, cache_len=40)
+    dg, _ = m_gpu.decode_step(q_gpu, nxt.cuda(), cg)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in KERNELS}
+    want = 2 * (7 * cfg.n_layers + 1)
+    if launches["fp8_matmul"] != want or sum(launches.values()) != want:
+        raise AssertionError(f"block-{block} model: launches {launches}, expected {want} of "
+                             f"fp8_matmul")
+    for name, gpu, cpu in (("prefill", lg, lc), ("decode", dg, dc)):
+        err = (gpu.float().cpu() - cpu.float()).abs().max().item()
+        scale = cpu.float().abs().max().item()
+        log(f"block-{block} model agreement ({name}, CUDA-core route): logits max |gpu - cpu| "
+            f"= {err:.4g} (max |logit| {scale:.4g}, tolerance 5% of it); launches "
+            f"{json.dumps(launches)}")
+        if not err <= 0.05 * scale:
+            raise AssertionError(f"block-{block} model: GPU and CPU {name} logits disagree")
     return launches
 
 
@@ -2450,6 +2617,66 @@ def methods_phase(torch, args, model, post, prompts, base_state, daq_outputs) ->
     methods_agreement(torch, args.seed)
 
 
+def block64_phase(torch, model, post, prompts, base_state, daq_outputs,
+                  block: int = 64) -> None:
+    """Phase 7l: phase 4's weights (``post``, and ``base`` remade from
+    ``base_state`` as phase 7e does) DAQ-quantized (sign, E4M3) at quant
+    block 64, storage mode, then phase 6's 8 requests (128 + 64 tokens)
+    through ``Engine(slots=8, k_steps=8)``: the sweep's and the quantizer's
+    launches (2 and 1 a leaf-layer), and the serve's on the tensor-core
+    routes (``fp8_serve_launches``: wgmma 7 x layers a prefill call, decode
+    7 x layers + 1 a decode step and 1 a prefill call, the CUDA-core kernel
+    none) asserted; quantize seconds, peak GB, tok/s, a decode step's and a
+    prefill's breakdown, and how many greedy tokens agree with phase 6's
+    block-128 serve (a reading: another quantization)."""
+    from repro_torch.configs import QuantConfig
+    from repro_torch.engine import Engine
+    from repro_torch.kernels.scale_search.kernel import sweep_plan
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    g = torch.Generator(device=model.device)
+    g.set_state(base_state)
+    base = make_base(torch, post, g)
+    torch.cuda.synchronize()
+    log(f"block-{block} phase: phase 4's base remade in {time.perf_counter() - t0:.2f} s")
+    qcfg = QuantConfig(use_fused_kernel=True, block_size=block)
+    tree, report, launches, secs, peak = quantize_counted(torch, post, base, qcfg, None)
+    del base
+    torch.cuda.empty_cache()
+    n = leaf_layers(report)
+    passes = len(sweep_plan(1 + qcfg.n_coarse)) + len(sweep_plan(1 + qcfg.n_fine))
+    want = dict.fromkeys(launches, 0)
+    want.update(scale_search=passes * n, fp8_quant=n)
+    log(f"block-{block} phase: quantize {secs:.2f} s for {report.n_quantized} tensors "
+        f"({report.quantized_bytes / 1e9:.2f} GB), peak {peak:.2f} GB; chosen-alpha hash "
+        f"{alpha_hash(report.per_leaf)}, code-and-scale hash {code_hash(torch, tree)} over "
+        f"{n} leaf-layers; launches {json.dumps(launches)}")
+    if launches != want:
+        raise AssertionError(f"block-{block} quantize: launches {launches}, expected {want}")
+    leaf_sign_rates_hold(report, f"block-{block} DAQ")
+    engine = Engine(model, tree, slots=SLOTS, cache_len=PROMPT + GEN, k_steps=K_STEPS)
+    outputs, stats, launches, secs = counted_serve(torch, engine, list(prompts))
+    dec = stats["counters"]["tokens"]
+    want = dict.fromkeys(launches, 0)
+    want.update(fp8_serve_launches(stats, cfg.n_layers))
+    log(f"block-{block} phase, serve: {len(outputs)} requests x {GEN} tokens in {secs:.2f} s "
+        f"({SLOTS * GEN / secs:.1f} tok/s end to end); prefill {stats['prefill_s']:.3f} s; "
+        f"decode {dec} tokens in {stats['decode_s']:.3f} s = {dec / stats['decode_s']:.1f} "
+        f"tok/s; launches {json.dumps(launches)}; vs phase 6's block-128 tokens: "
+        f"{agreement(outputs, daq_outputs)}")
+    if launches != want:
+        raise AssertionError(f"block-{block} serve: launches {launches}, expected {want}")
+    for out in outputs:
+        if len(out) != GEN or not all(0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"block-{block} serve: bad output row {out[:8]}... "
+                                 f"({len(out)} tokens)")
+    del engine
+    torch.cuda.empty_cache()
+    breakdowns(torch, model, tree, prompts, steps=1, tree=f"block-{block} tree ")
+    del tree
+    torch.cuda.empty_cache()
+
+
 def methods_agreement(torch, seed: int) -> None:
     """The reduced GLM-4-9B (bf16, base = post + 1 % noise) on the card
     against the CPU: ``daq-per-block`` (sign, blocks of 32 and channels)
@@ -3006,8 +3233,10 @@ def moe_small_agreement(torch, seed: int, device: str = "cuda") -> dict:
     ``device`` on fp32 activations (embedding rows fed straight in through
     the layer functions ``Model.prefill`` / ``decode_step`` run: bf16
     activations would flip top-k choices between devices), every product
-    on the CUDA-core route there: a prefill of 4 x 32 tokens and 2 greedy
-    decode steps.  Every routing call's dispatch equal and its combine
+    on the tensor-core routes there (fp32 x as three stacked bf16 parts: the
+    prefill's 3 x 128 rows on wgmma, the LM heads' and decode steps' 3 x 4
+    on the decode route): a prefill of 4 x 32 tokens and 2 greedy decode
+    steps.  Every routing call's dispatch equal and its combine
     within 1 bf16 ulp; the last-token logits within 1e-3 of their scale;
     the greedy tokens equal.  Returns the kernels' launches of the device
     run."""
@@ -3087,17 +3316,18 @@ def moe_small_agreement(torch, seed: int, device: str = "cuda") -> dict:
         if not torch.equal(d.argmax(-1)[sure], c.argmax(-1)[sure]):
             raise AssertionError(f"small moe model: greedy tokens differ at step {step}")
         held += int(sure.sum())
-    want = 15 * (steps + 1)        # 7 products a layer x 2 and the LM head, a forward
+    # 7 products a layer x 2 and the LM head, a forward
+    want = {"fp8_matmul_wgmma": 14, "fp8_matmul_decode": 1 + 15 * steps, "fp8_matmul": 0}
     log(f"small moe model agreement ({device} vs CPU, fp32 activations, block 64): "
         f"{len(rec_cpu)} routing calls dispatched equally; logits max |dev - cpu| "
         f"{worst:.3e} of their scale (tolerance 1e-3); greedy tokens equal, {held} of "
         f"{B * (steps + 1)} above a 1e-3 margin; launches {json.dumps(launches)}")
     if worst > 1e-3 or held < B:
         raise AssertionError("small moe model: logits disagree, or no token was held")
-    if torch.device(device).type == "cuda" and (launches["fp8_matmul"] != want
-                                                or sum(launches.values()) != want):
-        raise AssertionError(f"small moe model: launches {launches}, expected {want} of "
-                             f"fp8_matmul")
+    if torch.device(device).type == "cuda" and (
+            {k: launches[k] for k in want} != want
+            or sum(launches.values()) != sum(want.values())):
+        raise AssertionError(f"small moe model: launches {launches}, expected {want}")
     return launches
 
 
@@ -3244,8 +3474,8 @@ def moe_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
     torch.cuda.empty_cache()
     moe_kernel_checks(torch, torch.Generator(device="cuda").manual_seed(seed + 15))
     torch.cuda.empty_cache()
-    small = moe_small_agreement(torch, seed)
-    records["fp8_matmul"]["launches"] += small["fp8_matmul"]
+    for name, n in moe_small_agreement(torch, seed).items():
+        records[name]["launches"] += n
 
 
 def clone_tree(tree):
@@ -3472,6 +3702,29 @@ def tree_readings(torch, layers: int = 40, seed: int = 0) -> None:
         f"{leaf_layers(report)} leaf-layers")
 
 
+def route_readings(torch, seed: int = 0) -> None:
+    """The tensor-core routes' cold device times at the main path's shapes
+    (bf16, block 128: decode at M = 8 [4096,13696] and the LM head, wgmma
+    at M = 1,024 [4096,13696]) and a hash of their outputs, for the
+    ``repro_torch`` first on ``sys.path``: import this script with another
+    tree's ``src`` first to time both trees' kernels in one call (see
+    ``.claude/skills/verify/SKILL.md``)."""
+    import repro_torch
+    from repro_torch.kernels.fp8_matmul.kernel import matmul_fp8_decode, matmul_fp8_wgmma
+    where = Path(repro_torch.__file__).resolve().parent
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for name, run, M, (K, N) in (("decode", matmul_fp8_decode, SLOTS, (4096, 13696)),
+                                 ("wgmma", matmul_fp8_wgmma, SLOTS * PROMPT, (4096, 13696)),
+                                 ("decode", matmul_fp8_decode, SLOTS, (4096, 151552))):
+        case = MatmulCase(torch, g, M, K, N)
+        y = run(case.x, *case.w[0])
+        digest = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
+        log(f"route readings of {where}: {name} M={M} [{K},{N}] "
+            f"{device_ms(torch, case.calls(run)):.5f} ms device time, output hash {digest}")
+        del case, y
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=40,
@@ -3517,11 +3770,12 @@ def main() -> int:
 
     t0 = time.perf_counter()
     small_model_agreement(torch, args.seed)
-    fp32_launches = fp32_model_agreement(torch, args.seed)
+    fp32_model_agreement(torch, args.seed)
+    odd = odd_block_agreement(torch, args.seed)
     log(f"small-model checks in {time.perf_counter() - t0:.1f} s")
-    # the CUDA-core kernel's path is the float32 model's (bf16 serves never
-    # reach it): its launches are counted there
-    records["fp8_matmul"]["launches"] = fp32_launches["fp8_matmul"]
+    # the CUDA-core kernel's path is a tree quantized at a block that is not a
+    # multiple of 16 (no serve of the main path reaches it): counted there
+    records["fp8_matmul"]["launches"] = odd["fp8_matmul"]
     model, post, qparams, prompts, daq_outputs, base_state = main_path(torch, args, records)
     t0 = time.perf_counter()
     phase = paged_phase(torch, args, model, qparams)
@@ -3549,6 +3803,9 @@ def main() -> int:
     t0 = time.perf_counter()
     methods_phase(torch, args, model, post, prompts, base_state, daq_outputs)
     log(f"methods phase passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    block64_phase(torch, model, post, prompts, base_state, daq_outputs)
+    log(f"block-64 phase passed in {time.perf_counter() - t0:.1f} s")
     del post
     torch.cuda.empty_cache()
     t0 = time.perf_counter()

@@ -1,8 +1,10 @@
 // Device and host helpers shared by the port's Hopper tensor-core kernels
 // (fp8_matmul_wgmma.cu, fp8_matmul_decode.cu): shared-memory addresses,
-// wgmma descriptors and fences, the exact E4M3 -> bf16 conversion,
+// wgmma descriptors and fences, the exact E4M3 -> bf16 / fp16 conversions,
 // mbarriers, TMA loads and the tensor-map encode.
 #pragma once
+
+#include <type_traits>
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -40,6 +42,24 @@ __device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t codes) {
       static_cast<__nv_fp8x2_storage_t>(codes & 0xFFFFu), __NV_E4M3);
   const __nv_bfloat162 b = __float22bfloat162_rn(__half22float2(__half2(h)));
   return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// Two E4M3 codes to two fp16, exactly (cvt.rn.f16x2.e4m3x2: every E4M3
+// value is a half).
+__device__ __forceinline__ uint32_t e4m3x2_to_f16x2(uint32_t codes) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(codes & 0xFFFFu), __NV_E4M3);
+  return static_cast<uint32_t>(h.x) | (static_cast<uint32_t>(h.y) << 16);
+}
+
+// Two E4M3 codes to two values of x's 16-bit type T (__nv_bfloat16 or
+// __half), the type the tensor-core products take.
+template <typename T>
+__device__ __forceinline__ uint32_t e4m3x2_to(uint32_t codes) {
+  if constexpr (std::is_same_v<T, __half>)
+    return e4m3x2_to_f16x2(codes);
+  else
+    return e4m3x2_to_bf16x2(codes);
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {

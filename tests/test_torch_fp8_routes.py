@@ -1,9 +1,10 @@
 """The fp8 matmul's three CUDA routes, seen from the CPU.
 
-``kernel.route`` sends bf16, block-128 products of fewer than
-``TC_MIN_ROWS`` rows to the decode kernel, larger ones to the prefill
-(wgmma) kernel, and every other operand pair (fp16 / fp32 x, other blocks)
-to the CUDA-core kernel; all compute the function of the reference's
+``kernel.route`` sends bf16, fp16 and fp32 products at every quant block
+that is a multiple of 16 with fewer than ``TC_MIN_ROWS`` kernel rows (M;
+3M for fp32 x, split into three bf16 parts) to the decode kernel, larger
+ones to the prefill (wgmma) kernel, and the other blocks to the CUDA-core
+kernel; all compute the function of the reference's
 ``matmul_fp8_pallas``, whose plain version serves CPU tensors.  The kernels
 run only on the card (``chip_smoke.py`` holds each against the plain
 version there); here: the route table and the route of every product of a
@@ -53,17 +54,31 @@ BF, E4, F16, F32 = torch.bfloat16, torch.float8_e4m3fn, torch.float16, torch.flo
     (8, 256, 4096, 128, BF, "decode"),
     (8, 151552, 4096, 128, BF, "decode"),         # the LM head (last token per slot)
     (1, 4096, 4096, 128, BF, "decode"),
-    (8, 4096, 4096, 256, BF, "cuda_core"),
-    (1024, 13696, 4096, 64, BF, "cuda_core"),     # another quant block
-    (1024, 13696, 4096, 256, BF, "cuda_core"),
-    (1024, 13696, 4096, 512, BF, "cuda_core"),
+    (8, 4096, 4096, 256, BF, "decode"),
+    (1024, 13696, 4096, 64, BF, "wgmma"),         # another quant block
+    (1024, 13696, 4096, 256, BF, "wgmma"),
+    (1024, 13696, 4096, 512, BF, "wgmma"),
     (TC_MIN_ROWS - 1, 4096, 4096, 128, BF, "decode"),
     (TC_MIN_ROWS, 4096, 4096, 128, BF, "wgmma"),
-    (8, 4096, 4096, 128, F32, "cuda_core"),       # a float32 / float16 model
-    (8, 4096, 4096, 128, F16, "cuda_core"),
-    (1024, 4096, 4096, 128, F32, "cuda_core"),
-    (1024, 4096, 4096, 128, F16, "cuda_core"),
-    (8, 4096, 4096, 64, F32, "cuda_core"),
+    (8, 4096, 4096, 128, F32, "wgmma"),           # fp32 x: 3M = 24 stacked bf16 rows
+    (8, 4096, 4096, 128, F16, "decode"),          # a float16 model
+    (1024, 4096, 4096, 128, F32, "wgmma"),
+    (1024, 4096, 4096, 128, F16, "wgmma"),
+    (8, 4096, 4096, 64, F32, "wgmma"),
+    (8, 13696, 4096, 64, BF, "decode"),           # GLM-4-9B quantized at block 64
+    (8, 151552, 4096, 64, BF, "decode"),
+    (8, 13696, 4096, 32, BF, "decode"),
+    (1024, 13696, 4096, 32, BF, "wgmma"),
+    (8, 4096, 4096, 16, BF, "decode"),
+    (1024, 4096, 4096, 16, F16, "wgmma"),
+    (8, 1632, 1056, 96, F16, "decode"),
+    (1024, 1632, 1056, 96, BF, "wgmma"),
+    (5, 4096, 4096, 64, F32, "decode"),           # 3M = 15 < TC_MIN_ROWS
+    (6, 4096, 4096, 64, F32, "wgmma"),            # 3M = 18
+    (8, 512, 512, 8, BF, "cuda_core"),            # blocks that are not multiples of 16
+    (1024, 1600, 1040, 40, BF, "cuda_core"),
+    (8, 1320, 660, 66, F32, "cuda_core"),
+    (8, 1320, 660, 66, F16, "cuda_core"),
 ])
 def test_route(M, N, K_, block, xd, want):
     assert route(M, N, K_, block, xd) == want
@@ -243,12 +258,32 @@ def test_wgmma_operand_checks_accept_the_main_path():
     assert wgmma_operand_error(**_operands(x_shape=(1, 256))) is None     # any M
 
 
+@pytest.mark.parametrize("over", [
+    dict(x_dtype=F16),
+    dict(block=64, scales_shape=(4, 6)),
+    dict(block=16, scales_shape=(16, 24)),
+    dict(block=32, x_dtype=F16, scales_shape=(8, 12)),
+    dict(block=64, x_shape=(64, 192), x_strides=(192, 1), wq_shape=(192, 320),
+         wq_strides=(320, 1), scales_shape=(3, 5)),                  # K, N off the 128 grid
+    dict(block=96, x_shape=(64, 288), x_strides=(288, 1), wq_shape=(288, 480),
+         wq_strides=(480, 1), scales_shape=(3, 5)),
+    dict(block=256, wq_shape=(256, 512), wq_strides=(512, 1), scales_shape=(1, 2)),
+])
+def test_tensor_core_operand_checks_accept_every_block_of_16(over):
+    """Both tensor-core kernels take fp16 x and any block that is a
+    multiple of 16 and divides K and N (decode at 8 rows, wgmma at 64)."""
+    assert wgmma_operand_error(**_operands(**over)) is None
+    assert decode_operand_error(**_operands(**{"x_shape": (8, over.get("x_shape", (64, 256))[1]),
+                                               **{k: v for k, v in over.items()
+                                                  if k != "x_shape"}})) is None
+
+
 @pytest.mark.parametrize("over,why", [
     (dict(x_dtype=F32), "bf16 x"),
-    (dict(x_dtype=torch.float16), "bf16 x"),
+    (dict(x_dtype=torch.float64), "bf16 x"),
     (dict(wq_dtype=torch.float8_e5m2), "e4m3 wq"),
     (dict(scales_dtype=torch.float16), "float32 scales"),
-    (dict(block=64, scales_shape=(4, 6)), "block 128"),
+    (dict(block=40, scales_shape=(6, 9)), "multiple of 16"),
     (dict(x_shape=(2, 32, 256), x_strides=(8192, 256, 1)), "2-D"),
     (dict(x_shape=(64, 192), x_strides=(192, 1), wq_shape=(192, 384)), "multiples of 128"),
     (dict(wq_shape=(256, 200), wq_strides=(200, 1)), "multiples of 128"),
@@ -407,8 +442,8 @@ def test_decode_operand_checks_accept_the_decode_rows():
     (dict(x_shape=(64, 256)), "rows of x"),
     (dict(x_shape=(0, 256)), "rows of x"),
     (dict(x_shape=(8, 256), x_dtype=F32), "bf16 x"),
-    (dict(x_shape=(8, 256), x_dtype=F16), "bf16 x"),
-    (dict(x_shape=(8, 256), block=64, scales_shape=(4, 6)), "block 128"),
+    (dict(x_shape=(8, 256), x_dtype=torch.float64), "bf16 x"),
+    (dict(x_shape=(8, 256), block=40, scales_shape=(6, 9)), "multiple of 16"),
     (dict(x_shape=(8, 256), wq_shape=(256, 200), wq_strides=(200, 1)), "multiples of 128"),
     (dict(x_shape=(8, 256), scales_shape=(2, 2)), "scales"),
     (dict(x_shape=(8, 256), x_strides=(512, 1)), "row-major"),
