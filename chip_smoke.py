@@ -816,8 +816,10 @@ def matmul_times(torch, run, case) -> dict:
 
 def check_matmul(torch, name, run, case, *, time_it=False) -> dict:
     """``run`` against the plain version on copy 0 of ``case``: |err| <=
-    1e-4 |plain| + 1e-5 max|plain| (fp32 sums in another order; bf16 x bf16
-    products are exact in fp32).  With ``time_it``, ``matmul_times``."""
+    1e-4 |plain| + 1e-5 max|plain| over the element's row (fp32 sums in
+    another order; bf16 x bf16 products are exact in fp32; each row is held
+    to its own scale, so a row of tiny x is checked beside a row of huge
+    x).  With ``time_it``, ``matmul_times``."""
     from repro_torch.kernels.fp8_matmul.ref import matmul_fp8_ref
     M, K, N, bs = case.M, case.K, case.N, case.block
     wq, sc = case.w[0]
@@ -825,8 +827,8 @@ def check_matmul(torch, name, run, case, *, time_it=False) -> dict:
     yp = matmul_fp8_ref(case.x, wq, sc, block=bs)
     torch.cuda.synchronize()
     err = (yk - yp).abs()
-    ok = bool(torch.isfinite(yk).all()) and bool((err <= 1e-4 * yp.abs()
-                                                  + 1e-5 * yp.abs().max()).all())
+    ok = bool(torch.isfinite(yk).all()) and bool(
+        (err <= 1e-4 * yp.abs() + 1e-5 * yp.abs().amax(dim=1, keepdim=True)).all())
     rec = dict(max_abs_err=float(err.max()))
     if time_it:
         rec.update(matmul_times(torch, run, case))
@@ -924,8 +926,11 @@ def check_general_routes(torch, g) -> None:
     block of ``GENERAL_SHAPES`` with bf16, fp16 and fp32 x at every M of
     ``GENERAL_ROWS``; [192,320] (K and N off the 64-column tile) and
     [1088,1600] at block 64; weights whose tiles hold every finite E4M3
-    code; fp32 x with rows near 1e-30 and rows holding +-3e38 and
-    -2.5e38 (``split_bf16`` scales those by 2^-64)."""
+    code; fp32 x with rows near 1e-30 and, in the same x, rows holding
+    3e38 and -2.5e38 (``split_bf16`` scales only those by 2^-64; each row
+    is held to its own scale).  Then phase 7l's products: every GLM-4-9B
+    width of ``DECODE_WIDTHS`` at block 64 with bf16 x, at a decode step's
+    rows (decode route) and, but the LM head, a prefill's (wgmma)."""
     from repro_torch.kernels.fp8_matmul.kernel import route
     dtypes = (torch.bfloat16, torch.float16, torch.float32)
 
@@ -955,6 +960,11 @@ def check_general_routes(torch, g) -> None:
         for bs in (64, 128):
             check(M, 1024, 1536, bs, torch.float32, x=x)
             n += 1
+    for K, N in DECODE_WIDTHS:
+        for M in (SLOTS,) if N == 151552 else (SLOTS, SLOTS * PROMPT):
+            check(M, K, N, 64, torch.bfloat16)
+            n += 1
+            torch.cuda.empty_cache()
     log(f"general routes: {n} products through route() agree with the plain version")
     torch.cuda.empty_cache()
 
@@ -1115,107 +1125,26 @@ def small_model_agreement(torch, seed: int) -> None:
         raise AssertionError("small model: GPU and CPU prefill logits disagree")
 
 
-def fp32_model_agreement(torch, seed: int) -> dict:
-    """fp32 and fp16 x and a block other than 128 on the tensor-core routes.
-    A small GLM-shaped model with ``dtype="float32"`` parameters over
-    block-64 fp8 weights (quantized once on the CPU) is prefilled and stepped
-    once on the CPU (plain versions) and on the GPU, where its prefill's
-    products take the wgmma route and its LM heads and decode step the decode
-    route.  Its activations are bf16 whatever the parameters' type
-    (``models/common.py::ACT_DTYPE``, as in the reference), so its logits are
-    held to the bf16 model's tolerance, 5 % of the largest.  Then each
-    quantized linear of its first layer and its LM head takes fp32 x (8
-    rows: 24 stacked bf16 rows, the wgmma route) through ``ops.matmul_fp8``
-    and fp16 x (the decode route) through ``ops.matmul_fp8_2d`` on both
-    devices: |gpu - cpu| <= 1e-4 |cpu| + 1e-5 max|cpu| (fp32 sums in another
-    order).  Returns the kernels' launch counts of the GPU runs, zeroed just
-    before them."""
+def card_vs_cpu(torch, seed: int, block: int, dtype: str, label: str, also=None):
+    """A small GLM-shaped model with ``dtype`` parameters over fp8 weights
+    quantized once on the CPU at ``block``, prefilled (4 x 32 tokens) and
+    stepped once on the CPU (plain versions) and on the GPU: logits within
+    5 % of the largest (its activations are bf16 whatever the parameters'
+    type, ``models/common.py::ACT_DTYPE``, as in the reference).  ``also(
+    q_cpu, q_gpu, g)`` runs after the GPU's step, inside the counted window.
+    Returns (cfg, the kernels' launch counts of the GPU run, zeroed just
+    before it, what ``also`` returned)."""
     from repro_torch.configs import QuantConfig, get_arch
+    from repro_torch.core.policy import tree_map
     from repro_torch.kernels._lib import KERNELS
-    from repro_torch.kernels.fp8_matmul import ops
     from repro_torch.models import build_model
     from repro_torch.quant_runtime.qparams import QuantizedTensor
     from repro_torch.quantize import quantize
-    from repro_torch.core.policy import tree_map
     cfg = dataclasses.replace(get_arch("glm4-9b"), n_layers=2, d_model=256, n_heads=2,
                               n_kv_heads=1, head_dim=128, d_ff=512, vocab_size=1024,
-                              dtype="float32")
+                              dtype=dtype)
     m_cpu, m_gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
-    g = torch.Generator().manual_seed(seed + 2)
-    post = m_cpu.init(g)
-    base = tree_map(lambda t: t if t.ndim < 2 else
-                    t + 0.01 * t.std() * torch.randn(t.shape, generator=g), post)
-    q_cpu, _ = quantize(post, base, QuantConfig(use_fused_kernel=True, block_size=64),
-                        mode="storage")
-    q_gpu = tree_map(lambda t: dataclasses.replace(t, data=t.data.cuda(), scale=t.scale.cuda())
-                     if isinstance(t, QuantizedTensor) else t.cuda(), q_cpu)
-    tokens = torch.randint(0, cfg.vocab_size, (4, 32), generator=g)
-    nxt = torch.randint(0, cfg.vocab_size, (4, 1), generator=g)
-    lc, cc = m_cpu.prefill(q_cpu, {"tokens": tokens}, cache_len=40)
-    dc, _ = m_cpu.decode_step(q_cpu, nxt, cc)
-    layer0 = lambda q: [q["stack"]["L0"][part][name].layer(0)
-                        for part, names in (("attn", ("wq", "wk", "wv", "wo")),
-                                            ("mlp", ("w_gate", "w_up", "w_down")))
-                        for name in names] + [q["embed"]["w_head"]]
-    xs = [torch.randn((8, w.shape[0]), generator=g) for w in layer0(q_cpu)]
-
-    for k in KERNELS:
-        k.launches = 0
-    lg, cg = m_gpu.prefill(q_gpu, {"tokens": tokens.cuda()}, cache_len=40)
-    dg, _ = m_gpu.decode_step(q_gpu, nxt.cuda(), cg)
-    direct = [(ops.matmul_fp8(x.cuda(), wg), ops.matmul_fp8(x, wc),
-               ops.matmul_fp8_2d(x.half().cuda(), wg.data, wg.scale[:, 0, :, 0], block=64),
-               ops.matmul_fp8_2d(x.half(), wc.data, wc.scale[:, 0, :, 0], block=64))
-              for x, wg, wc in zip(xs, layer0(q_gpu), layer0(q_cpu))]
-    torch.cuda.synchronize()
-    launches = {k.name: k.launches for k in KERNELS}
-
-    n = 7 * cfg.n_layers
-    want = {"fp8_matmul_wgmma": n + len(xs), "fp8_matmul_decode": 1 + (n + 1) + len(xs),
-            "fp8_matmul": 0}
-    if {k: launches[k] for k in want} != want or sum(launches.values()) != sum(want.values()):
-        raise AssertionError(f"float32 model: launches {launches}, expected {want}")
-    for name, gpu, cpu in (("prefill", lg, lc), ("decode", dg, dc)):
-        err = (gpu.float().cpu() - cpu.float()).abs().max().item()
-        scale = cpu.float().abs().max().item()
-        log(f"float32-model agreement ({name}, block 64, tensor-core routes): logits max "
-            f"|gpu - cpu| = {err:.4g} (max |logit| {scale:.4g}, tolerance 5% of it)")
-        if not err <= 0.05 * scale:
-            raise AssertionError(f"float32 model: GPU and CPU {name} logits disagree")
-    worst = 0.0
-    for y32g, y32c, y16g, y16c in direct:
-        for gpu, cpu, dtype in ((y32g, y32c, torch.float32), (y16g, y16c, torch.float32)):
-            gpu = gpu.cpu()
-            if gpu.dtype != dtype or cpu.dtype != dtype:
-                raise AssertionError(f"float32 model: product in {gpu.dtype}, expected {dtype}")
-            err = (gpu - cpu).abs()
-            worst = max(worst, float((err / (1e-4 * cpu.abs() + 1e-5 * cpu.abs().max())).max()))
-    log(f"float32-model agreement: {len(direct)} linears x fp32 (wgmma) and fp16 (decode) x, "
-        f"worst |gpu - cpu| at {worst:.3f} of its tolerance; launches "
-        f"{json.dumps(launches)}")
-    if not worst <= 1.0:
-        raise AssertionError("float32 model: GPU and CPU fp32 / fp16-x products disagree")
-    return launches
-
-
-def odd_block_agreement(torch, seed: int, block: int = 8) -> dict:
-    """The CUDA-core kernel's own path: a quant block that is not a multiple
-    of 16.  A small GLM-shaped bf16 model whose fp8 weights were quantized
-    once on the CPU at block 8 is prefilled (4 x 32 tokens) and stepped
-    once on the CPU (plain versions) and on the GPU, where every product
-    takes the CUDA-core kernel; logits within 5 % of the largest (bf16
-    activations, as ``small_model_agreement``).  Returns the kernels' launch
-    counts of the GPU run, zeroed just before it."""
-    from repro_torch.configs import QuantConfig, get_arch
-    from repro_torch.core.policy import tree_map
-    from repro_torch.kernels._lib import KERNELS
-    from repro_torch.models import build_model
-    from repro_torch.quant_runtime.qparams import QuantizedTensor
-    from repro_torch.quantize import quantize
-    cfg = dataclasses.replace(get_arch("glm4-9b"), n_layers=2, d_model=256, n_heads=2,
-                              n_kv_heads=1, head_dim=128, d_ff=512, vocab_size=1024)
-    m_cpu, m_gpu = build_model(cfg, device="cpu"), build_model(cfg, device="cuda")
-    g = torch.Generator().manual_seed(seed + 3)
+    g = torch.Generator().manual_seed(seed)
     post = m_cpu.init(g)
     q_cpu, _ = quantize(post, make_base(torch, post, g),
                         QuantConfig(use_fused_kernel=True, block_size=block), mode="storage")
@@ -1229,20 +1158,73 @@ def odd_block_agreement(torch, seed: int, block: int = 8) -> dict:
         k.launches = 0
     lg, cg = m_gpu.prefill(q_gpu, {"tokens": tokens.cuda()}, cache_len=40)
     dg, _ = m_gpu.decode_step(q_gpu, nxt.cuda(), cg)
+    extra = also(q_cpu, q_gpu, g) if also else None
     torch.cuda.synchronize()
     launches = {k.name: k.launches for k in KERNELS}
+    for name, gpu, cpu in (("prefill", lg, lc), ("decode", dg, dc)):
+        err = (gpu.float().cpu() - cpu.float()).abs().max().item()
+        scale = cpu.float().abs().max().item()
+        log(f"{label} agreement ({name}, block {block}): logits max |gpu - cpu| = {err:.4g} "
+            f"(max |logit| {scale:.4g}, tolerance 5% of it); launches {json.dumps(launches)}")
+        if not err <= 0.05 * scale:
+            raise AssertionError(f"{label}: GPU and CPU {name} logits disagree")
+    return cfg, launches, extra
+
+
+def fp32_model_agreement(torch, seed: int) -> dict:
+    """fp32 and fp16 x and a block other than 128 on the tensor-core routes:
+    ``card_vs_cpu`` with float32 parameters at block 64, whose prefill's
+    products take the wgmma route and its LM heads and decode step the
+    decode route.  Then each quantized linear of its first layer and its LM
+    head takes fp32 x (8 rows: 24 stacked bf16 rows, the wgmma route)
+    through ``ops.matmul_fp8`` and fp16 x (the decode route) through
+    ``ops.matmul_fp8_2d`` on both devices: |gpu - cpu| <= 1e-4 |cpu| + 1e-5
+    max|cpu| (fp32 sums in another order).  Returns the kernels' launch
+    counts of the GPU runs."""
+    from repro_torch.kernels.fp8_matmul import ops
+    layer0 = lambda q: [q["stack"]["L0"][part][name].layer(0)
+                        for part, names in (("attn", ("wq", "wk", "wv", "wo")),
+                                            ("mlp", ("w_gate", "w_up", "w_down")))
+                        for name in names] + [q["embed"]["w_head"]]
+
+    def direct(q_cpu, q_gpu, g):
+        xs = [torch.randn((8, w.shape[0]), generator=g) for w in layer0(q_cpu)]
+        return [(ops.matmul_fp8(x.cuda(), wg), ops.matmul_fp8(x, wc),
+                 ops.matmul_fp8_2d(x.half().cuda(), wg.data, wg.scale[:, 0, :, 0], block=64),
+                 ops.matmul_fp8_2d(x.half(), wc.data, wc.scale[:, 0, :, 0], block=64))
+                for x, wg, wc in zip(xs, layer0(q_gpu), layer0(q_cpu))]
+
+    cfg, launches, products = card_vs_cpu(torch, seed + 2, 64, "float32", "float32-model",
+                                          also=direct)
+    n = 7 * cfg.n_layers
+    want = {"fp8_matmul_wgmma": n + len(products),
+            "fp8_matmul_decode": 1 + (n + 1) + len(products), "fp8_matmul": 0}
+    if {k: launches[k] for k in want} != want or sum(launches.values()) != sum(want.values()):
+        raise AssertionError(f"float32 model: launches {launches}, expected {want}")
+    worst = 0.0
+    for y32g, y32c, y16g, y16c in products:
+        for gpu, cpu in ((y32g, y32c), (y16g, y16c)):
+            gpu = gpu.cpu()
+            if gpu.dtype != torch.float32 or cpu.dtype != torch.float32:
+                raise AssertionError(f"float32 model: product in {gpu.dtype}, expected float32")
+            err = (gpu - cpu).abs()
+            worst = max(worst, float((err / (1e-4 * cpu.abs() + 1e-5 * cpu.abs().max())).max()))
+    log(f"float32-model agreement: {len(products)} linears x fp32 (wgmma) and fp16 (decode) "
+        f"x, worst |gpu - cpu| at {worst:.3f} of its tolerance")
+    if not worst <= 1.0:
+        raise AssertionError("float32 model: GPU and CPU fp32 / fp16-x products disagree")
+    return launches
+
+
+def odd_block_agreement(torch, seed: int, block: int = 8) -> dict:
+    """The CUDA-core kernel's own path, a quant block that is not a multiple
+    of 16: ``card_vs_cpu`` with bf16 parameters at block 8, where every
+    product takes the CUDA-core kernel.  Returns its launch counts."""
+    cfg, launches, _ = card_vs_cpu(torch, seed + 3, block, "bfloat16", f"block-{block} model")
     want = 2 * (7 * cfg.n_layers + 1)
     if launches["fp8_matmul"] != want or sum(launches.values()) != want:
         raise AssertionError(f"block-{block} model: launches {launches}, expected {want} of "
                              f"fp8_matmul")
-    for name, gpu, cpu in (("prefill", lg, lc), ("decode", dg, dc)):
-        err = (gpu.float().cpu() - cpu.float()).abs().max().item()
-        scale = cpu.float().abs().max().item()
-        log(f"block-{block} model agreement ({name}, CUDA-core route): logits max |gpu - cpu| "
-            f"= {err:.4g} (max |logit| {scale:.4g}, tolerance 5% of it); launches "
-            f"{json.dumps(launches)}")
-        if not err <= 0.05 * scale:
-            raise AssertionError(f"block-{block} model: GPU and CPU {name} logits disagree")
     return launches
 
 
@@ -2672,9 +2654,38 @@ def block64_phase(torch, model, post, prompts, base_state, daq_outputs,
                                  f"({len(out)} tokens)")
     del engine
     torch.cuda.empty_cache()
+    dequantized_prefill_agreement(torch, model, tree, prompts, f"block-{block} tree")
     breakdowns(torch, model, tree, prompts, steps=1, tree=f"block-{block} tree ")
     del tree
     torch.cuda.empty_cache()
+
+
+def dequantized_prefill_agreement(torch, model, tree, prompts, label: str,
+                                  layers: int = 4) -> float:
+    """One prefill of ``prompts`` through the first ``layers`` layers of the
+    fp8 ``tree`` (the fp8 kernels) against the same cut tree with each fp8
+    leaf dequantized, its fp32 values rounded once to bf16, and multiplied
+    by ``torch.matmul``: logits within 5 % of the largest (the bf16
+    rounding of the weights, as the small models' tolerance).  Unlike a
+    comparison of two quantizations, this sees a fault of the kernels on a
+    served tree's own leaves.  Returns the error over the largest logit."""
+    from repro_torch.core.policy import tree_map
+    from repro_torch.quant_runtime.qparams import QuantizedTensor
+    cut_model, cut = first_layers(model, layers, tree)
+    dense = tree_map(lambda t: t.dequantize(torch.bfloat16) if isinstance(t, QuantizedTensor)
+                     else t, cut)
+    got, _ = cut_model.prefill(cut, {"tokens": prompts})
+    want, _ = cut_model.prefill(dense, {"tokens": prompts})
+    del dense
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    log(f"{label}: a prefill of {tuple(prompts.shape)} tokens through {layers} layers on the "
+        f"fp8 kernels vs its leaves dequantized to bf16 and torch.matmul: logits max |err| "
+        f"{err:.4g} (max |logit| {scale:.4g}, {err / scale:.4g} of it; tolerance 5%)")
+    if not err <= 0.05 * scale:
+        raise AssertionError(f"{label}: the fp8 kernels' prefill disagrees with the dequantized "
+                             f"tree's")
+    return err / scale
 
 
 def methods_agreement(torch, seed: int) -> None:
@@ -3708,7 +3719,7 @@ def route_readings(torch, seed: int = 0) -> None:
     at M = 1,024 [4096,13696]) and a hash of their outputs, for the
     ``repro_torch`` first on ``sys.path``: import this script with another
     tree's ``src`` first to time both trees' kernels in one call (see
-    ``.claude/skills/verify/SKILL.md``)."""
+    ``.claude/skills/verify/SKILL.md``).  ``main`` does not call it."""
     import repro_torch
     from repro_torch.kernels.fp8_matmul.kernel import matmul_fp8_decode, matmul_fp8_wgmma
     where = Path(repro_torch.__file__).resolve().parent

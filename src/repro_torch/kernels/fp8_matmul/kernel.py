@@ -120,7 +120,11 @@ def fold_schedule(K: int, block: int, k0: int = 0, k1: int | None = None) -> lis
     owns (a decode split's stages; all of K for wgmma), as its k16-step
     loop makes them: ``(first row, end row, quant block row)`` of each part,
     in order.  A part ends at each multiple of ``block``, and the last at
-    ``min(k1, K)``: steps past K are zero fill, which the kernels skip."""
+    ``min(k1, K)``: steps past K are zero fill, which the kernels skip.
+
+    No kernel or caller runs this: it is the tests' model of the fold loops
+    of ``fp8_matmul_decode.cu`` and ``fp8_matmul_wgmma.cu``, and changes
+    together with them."""
     k1 = K if k1 is None else min(k1, K)
     bs16 = block // 16
     kb, done = divmod(k0 // 16, bs16)
