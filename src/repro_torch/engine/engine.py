@@ -40,7 +40,9 @@ fetched; everything per token lives on the device:
   stay cached (the index holds one reference) until LRU eviction makes
   room, in place of a FIFO wait that could deadlock; the cache persists
   across ``serve`` calls.  A partly matched last block is mapped shared,
-  and the first decode write copies it (copy-on-write).
+  and the first decode write copies it (copy-on-write).  Blocks are shared
+  only where every layer is attention (dense, MoE): an SSM stack's state is
+  recurrent, so it runs chunked and unshared (zero hits).
 * **self-speculative decoding** — ``n_spec > 0`` (paged only; pass the
   quantized ``draft_params`` tree) makes each dispatch step a speculative
   round (engine/spec.py): the draft proposes up to ``n_spec`` tokens, one
@@ -53,6 +55,15 @@ fetched; everything per token lives on the device:
   engine's for any draft (on the CPU; ``PERF.md`` decision a), and the
   acceptance rate (stats ``draft_accepted / draft_tokens``) measures how
   closely the quantized tree follows the full-precision one.
+
+Every family the port runs serves on every engine, under the reference's
+rules (``check_config``): an MoE layer routes at full capacity in a chunk
+piece and a verify (``models/lm.py``), so a speculative MoE serve must be
+dropless; chunked prefill over SSM state needs ``chunk_size`` on the
+``ssm_chunk`` grid.  A paged cache keeps a Mamba layer's state per slot
+beside the attention pools: admission copies a prefilled group's state
+into its slots (``_scatter_paged``) or zeroes a chunked slot's
+(``_admit_chunk``).
 
 Every prefill the engine runs (one-shot or a chunk) uses one flash tile
 shape, ``(4 * block_size, blocks_for(cache_len) * block_size)``
@@ -126,18 +137,40 @@ def _tensor_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def refuse_unported(mcfg, cfg: EngineConfig) -> None:
-    """Raise NotImplementedError for an engine mode the model's family does
-    not run yet: every family but ``dense`` serves on the contiguous engine
-    only."""
-    if mcfg.family != "dense" and (cfg.paged or cfg.chunk_size or cfg.prefix_cache
-                                   or cfg.n_spec):
-        raise NotImplementedError(
-            f"family {mcfg.family!r} runs on the contiguous engine only: the paged, "
-            f"chunked, prefix-cached and speculative engines' SSM paths (per-slot SSM "
-            f"leaves, mamba_prefill_chunk, mamba_verify_chunk) and MoE paths "
-            f"(full-capacity routing, the dense-prefix stack's block pools) are not "
-            f"ported yet (ROADMAP Queue A 5)")
+def check_config(mcfg, cfg: EngineConfig) -> None:
+    """Raise ValueError for an engine configuration the model config
+    ``mcfg`` cannot serve: the reference engine's rules that need no
+    weights (the serve CLI checks them before it makes any).  The paged,
+    chunked, prefix-cached and speculative engines serve every ported
+    family, with the reference's family rules: chunked prefill over SSM
+    state is exact only on the SSD chunk grid, and a speculative MoE serve
+    must route dropless."""
+    if cfg.k_steps < 1:
+        raise ValueError(f"k_steps must be >= 1, got {cfg.k_steps}")
+    if (cfg.chunk_size or cfg.prefix_cache) and not cfg.paged:
+        raise ValueError("chunk_size / prefix_cache need paged=True")
+    if cfg.n_spec:
+        if not cfg.paged:
+            raise ValueError("speculative decoding (n_spec > 0) rides the paged engine: "
+                             "pass paged=True")
+        if cfg.n_spec >= cfg.k_steps:
+            raise ValueError(f"n_spec must be < k_steps (got n_spec={cfg.n_spec}, "
+                             f"k_steps={cfg.k_steps}): the dispatch runs k_steps "
+                             f"speculative rounds and sizes its token grid "
+                             f"k_steps*(n_spec+1) — raise k_steps or lower n_spec")
+        if mcfg.family == "moe" and mcfg.capacity_factor * mcfg.top_k < mcfg.n_experts:
+            raise ValueError(
+                f"speculative verify routes MoE dropless, but this config's decode path "
+                f"can drop tokens (capacity_factor {mcfg.capacity_factor} * top_k "
+                f"{mcfg.top_k} < n_experts {mcfg.n_experts}), so greedy speculative output "
+                f"could diverge from the non-speculative engine when an expert queue "
+                f"overflows.  Serve dropless (capacity_factor >= n_experts / top_k) to "
+                f"speculate — what a serving engine wants regardless")
+    chunk = cfg.chunk_size or (4 * cfg.block_size if cfg.prefix_cache else 0)
+    if chunk and mcfg.family == "ssm" and chunk % mcfg.ssm_chunk:
+        raise ValueError(f"chunked prefill over SSM state is bit-exact only on the SSD chunk "
+                         f"grid: chunk_size {chunk} must be a multiple of ssm_chunk "
+                         f"{mcfg.ssm_chunk}")
 
 
 class Engine:
@@ -149,21 +182,9 @@ class Engine:
             cfg = EngineConfig(**kw)
         elif kw:
             raise TypeError("pass either cfg= or keyword fields, not both")
-        if cfg.k_steps < 1:
-            raise ValueError(f"k_steps must be >= 1, got {cfg.k_steps}")
         mcfg = model.cfg
-        refuse_unported(mcfg, cfg)
-        if (cfg.chunk_size or cfg.prefix_cache) and not cfg.paged:
-            raise ValueError("chunk_size / prefix_cache need paged=True")
+        check_config(mcfg, cfg)
         if cfg.n_spec:
-            if not cfg.paged:
-                raise ValueError("speculative decoding (n_spec > 0) rides the paged engine: "
-                                 "pass paged=True")
-            if cfg.n_spec >= cfg.k_steps:
-                raise ValueError(f"n_spec must be < k_steps (got n_spec={cfg.n_spec}, "
-                                 f"k_steps={cfg.k_steps}): the dispatch runs k_steps "
-                                 f"speculative rounds and sizes its token grid "
-                                 f"k_steps*(n_spec+1) — raise k_steps or lower n_spec")
             if draft_params is None:
                 raise ValueError("speculative decoding needs draft_params: a quantized copy "
                                  "of the serving weights, e.g. repro_torch.quantize.quantize("
@@ -185,6 +206,10 @@ class Engine:
         # without a ring cache: pad rows never feed real rows there, while an
         # SSM layer's state and conv history would take them in
         self._can_pad = mcfg.family == "dense" and not mcfg.sliding_window
+        # a prompt block's K/V is a function of its token prefix only where
+        # every layer is attention: an SSM stack's state is recurrent, so it
+        # runs chunked but unshared (no match, no hits, nothing registered)
+        self._can_match = cfg.prefix_cache and mcfg.family in ("dense", "moe")
         self._mb = P.blocks_for(cfg.cache_len, cfg.block_size)       # blocks per slot
         # one flash tile shape for every prefill: a chunk's rows then give
         # the one-shot prefill's bits (PERF.md, decision a)
@@ -228,11 +253,13 @@ class Engine:
     @staticmethod
     def _scatter_paged(cache, state, part, slots, lens, first, rem0, counts):
         """Admit one prefilled group into the paged cache: release the target
-        slots' stale blocks, allocate ``counts[i]`` fresh blocks per slot,
-        scatter the part cache's K/V rows block-wise into the pools in place
-        (rows past a slot's need land in the trash block), release again the
-        blocks of a slot that owes no decode step (``rem0 == 0``: its one
-        token came from the prefill logits), and arm the slot state."""
+        slots' stale blocks, allocate ``counts[i]`` fresh blocks per slot
+        (a stack with attention), scatter the part cache's K/V rows of every
+        group block-wise into its pools in place (rows past a slot's need
+        land in the trash block) and its per-slot (SSM) leaves slot-wise,
+        release again the blocks of a slot that owes no decode step
+        (``rem0 == 0``: its one token came from the prefill logits), and arm
+        the slot state."""
         B = state["active"].shape[0]
         bstate = {k: cache[k] for k in P.BSTATE_KEYS}
         nf0 = bstate["n_free"]
@@ -240,20 +267,31 @@ class Engine:
         bstate = P.release_slots(bstate, done)
         released = bstate["n_free"] - nf0
         pools = cache["stack"]["L0"]
-        nbl = part["stack"]["L0"]["k"].shape[2] // pools["pk"].shape[2]
-        nf1 = bstate["n_free"]
-        bstate, wids = P.alloc_admit(bstate, slots, counts, nbl)
-        popped = nf1 - bstate["n_free"]
+        popped = torch.zeros((), dtype=torch.int32, device=slots.device)
+        nbl = 0
+        if "pk" in pools:       # a pure-SSM stack has no blocks to fill
+            nbl = part["stack"]["L0"]["k"].shape[2] // pools["pk"].shape[2]
+            nf1 = bstate["n_free"]
+            bstate, wids = P.alloc_admit(bstate, slots, counts, nbl)
+            popped = nf1 - bstate["n_free"]
+            wids = wids.reshape(-1).long()
         bstate["slot_active"] = bstate["slot_active"].index_fill_(0, slots, rem0 > 0)
         if rem0 <= 0:
             nf2 = bstate["n_free"]
             bstate = P.release_slots(bstate, done)
             released = released + (bstate["n_free"] - nf2)
-        wids = wids.reshape(-1).long()
-        for name, src in (("pk", part["stack"]["L0"]["k"]), ("pv", part["stack"]["L0"]["v"])):
-            n, g, L = src.shape[:3]
-            pools[name][:, wids] = src.reshape(n, g * nbl, L // nbl,
-                                               *src.shape[3:]).to(pools[name].dtype)
+        for grp in ("prefix", "stack"):
+            if grp not in cache:
+                continue
+            src_leaves = part[grp]["L0"]
+            for name, leaf in cache[grp]["L0"].items():
+                if name in ("pk", "pv"):
+                    src = src_leaves["k" if name == "pk" else "v"]
+                    n, g, L = src.shape[:3]
+                    leaf[:, wids] = src.reshape(n, g * nbl, L // nbl,
+                                                *src.shape[3:]).to(leaf.dtype)
+                else:
+                    leaf[:, slots] = src_leaves[name].to(leaf.dtype)
         cache.update(bstate)
         cache["lengths"][slots] = lens
         state["cur"][slots, 0] = first
@@ -490,7 +528,8 @@ class Engine:
         """Admit one request into ``slot`` for in-dispatch chunked prefill, in
         place: no model forward here.  Release the slot's stale blocks, map
         the shared (prefix-hit) blocks and pop fresh ones (``admit_slot``),
-        and arm the prompt buffer.  ``ints`` is one host-to-device transfer:
+        zero the slot's per-slot (SSM) leaves and arm the prompt buffer.
+        ``ints`` is one host-to-device transfer:
         the ``-1``-padded shared block ids [blocks per slot], then the
         prompt padded to ``cache_len``.  The first token is sampled inside
         the dispatch when the last chunk lands.  Returns (cache, state,
@@ -505,6 +544,10 @@ class Engine:
         bstate, new_ids = P.admit_slot(bstate, slot, ints[:self._mb], n_shared, n_new,
                                        n_retained, self._mb)
         cache.update(bstate)
+        for grp, _, _ in self.model.groups:     # the slot's recurrent state starts at 0
+            for name, leaf in cache[grp]["L0"].items():
+                if name not in ("pk", "pv"):
+                    leaf[:, slot] = 0
         cache["lengths"][slot] = pf_start
         state["active"][slot] = False
         state["remaining"][slot] = 0
@@ -589,7 +632,7 @@ class Engine:
             cache, state = self._evict(cache, state, ids)
 
         def try_evict(want: int) -> int:
-            ids = index.evict(want) if cfg.prefix_cache else []
+            ids = index.evict(want) if self._can_match else []
             if ids:
                 drop_holds(ids)
                 stats["prefix_evictions"] += len(ids)
@@ -614,7 +657,7 @@ class Engine:
                 fits = False
                 for _ in range(len(index) + 2):
                     matched, partial_id, keys = [], None, []
-                    if cfg.prefix_cache:
+                    if self._can_match:
                         matched, partial_id, keys = index.match(toks)
                         index.pin(keys)
                     partial = partial_id is not None
@@ -623,7 +666,7 @@ class Engine:
                     new_full = full - len(matched)
                     n_new = new_full + (1 if part_len and not partial else 0)
                     shared = matched + ([partial_id] if partial else [])
-                    n_ret = new_full if cfg.prefix_cache else 0
+                    n_ret = new_full if self._can_match else 0
                     # a speculative round overshoots the budget by up to
                     # n_spec rows before it rolls back, as _blocks_needed
                     lifetime = min(P.blocks_for(min(L + gen_tokens - 1 + cfg.n_spec, cap_rows),

@@ -66,11 +66,13 @@ def init_slot_state(n_slots: int, device, prompt_cap: int = 0) -> dict:
 def _keep_rows(new_cache: dict, old_cache: dict, keep: torch.Tensor) -> dict:
     """Merge two paged caches per slot: ``lengths`` of the slots in ``keep``
     come from ``new_cache``, the others' from ``old_cache``.  The reference
-    selects every per-slot leaf here; the port writes the pools in place
-    and the dense stack has no other per-slot leaf, so ``lengths`` is all
-    there is to select.  That relies on the sub-step having sent every
-    write of a slot outside ``keep`` to the trash block (``alloc_step`` for
-    inactive slots, ``span_targets`` for ``valid == 0``)."""
+    selects every per-slot leaf here; the port writes the cache in place,
+    so ``lengths`` is all there is to select.  That relies on the sub-step
+    having left every slot outside ``keep`` as it was: its attention writes
+    go to the trash block (``alloc_step`` for slots not ``slot_active``,
+    ``span_targets`` for ``valid == 0``), and a Mamba layer steps only the
+    ``slot_active`` slots in a decode step and treats a ``valid == 0`` slot
+    as a no-op in a chunk."""
     return {**new_cache,
             "lengths": torch.where(keep, new_cache["lengths"], old_cache["lengths"])}
 

@@ -2,10 +2,10 @@
 tree verifies, inside one K-round dispatch composed with chunked prefill
 and refcounted prefix caching.
 
-Port of ``repro/engine/spec.py`` for the dense family.  The quantized tree
-(DAQ, AbsMax, ...) drafts up to ``n_spec`` tokens a round, one verify
-forward of the full-precision tree scores them all, and a prefix is
-accepted.  The **draft acceptance rate** is then a data-free, token-level
+Port of ``repro/engine/spec.py`` for the dense, MoE and SSM families.  The
+quantized tree (DAQ, AbsMax, ...) drafts up to ``n_spec`` tokens a round,
+one verify forward of the full-precision tree scores them all, and a
+prefix is accepted.  The **draft acceptance rate** is then a data-free, token-level
 measure of how much of the post-trained behaviour a quantizer kept, and
 every accepted draft is a decode step the verifier did not run alone.
 
@@ -18,16 +18,19 @@ One round (one of the dispatch's K steps) runs, in order:
    could not be popped (pool dry; the reservation ledger makes that
    unreachable) sits the round out (``blocked``) and retries the next.
 2. **draft** — ``n_spec`` ``decode_step_paged`` calls with the quantized
-   tree.  The port writes the pools in place where the reference drafts on
-   a working copy; for a dense stack that changes nothing: the draft reads
-   the verifier's rows for all history, its writes land in the span the
-   verify overwrites row for row, and rows past the accepted length are
-   masked by every later read.  Slots outside their decode phase are not
-   ``slot_active``, so their draft writes go to the trash block.
+   tree.  The port writes the cache in place where the reference drafts on
+   a working copy; for the attention pools that changes nothing: the draft
+   reads the verifier's rows for all history, its writes land in the span
+   the verify overwrites row for row, and rows past the accepted length
+   are masked by every later read.  Slots outside their decode phase are
+   not ``slot_active``, so their draft writes go to the trash block and a
+   Mamba layer leaves their state as it was.
 3. **verify** — one ``model.verify_chunk_paged`` forward of the
    full-precision tree over ``[cur, d_1 .. d_n]``: each row the decode step
    the non-speculative engine would run there (on the CPU bit for bit,
-   ``PERF.md`` decision a).
+   ``PERF.md`` decision a).  An MoE layer routes it at full capacity, which
+   equals the decode's routing only where that drops nothing: the engine
+   takes a speculative MoE serve only at a dropless ``capacity_factor``.
 4. **accept** — greedy: the longest prefix with ``argmax(p_i) == d_i``,
    then the verifier's own argmax.  Sampled: rejection sampling over the
    warped distributions, the tail drawn by Gumbel-argmax.  Both rules take
@@ -36,7 +39,14 @@ One round (one of the dispatch's K steps) runs, in order:
 5. **commit and rollback** — ``lengths`` advances by the emitted count;
    rejected rows stay in the pools, masked by every later read and
    overwritten by later writes, their blocks kept for the slot to grow
-   into.
+   into.  A recurrent state cannot be rewound by a mask, so a stack with
+   Mamba layers runs two passes, as the reference does: the round
+   snapshots the per-slot SSM leaves before the draft and puts them back
+   before the verify, and after acceptance puts them back again and runs
+   the verify a second time with ``valid`` = the emitted count, which
+   leaves each slot's state after exactly its accepted rows.  The
+   reference keeps the pre-round cache as a value; the snapshot is its
+   in-place counterpart (device copies, no host sync).
 6. **emit** — ``min(accepted + 1, remaining)`` tokens (the budget clamp;
    a clamped-away token lies past the request's end).
 7. **release** the blocks of slots whose budget drained, inside the round.
@@ -45,10 +55,8 @@ One round (one of the dispatch's K steps) runs, in order:
    token through column 0 of the round's grid (it did not speculate that
    round) and speculates from the next.
 
-Families whose state cannot be rewound by masking (SSM, hybrid, sliding
-window rings) need the reference's second verify pass over the pre-round
-cache, which writing the pools in place does not keep: they are not
-ported, and ``make_spec_dispatch`` raises for them.
+Hybrid stacks and sliding-window rings are not ported: ``Model`` raises
+for them (ROADMAP Queue A 5).
 
 Guarantee: greedy speculative output equals the non-speculative paged
 engine's token for token for any draft and any depth trajectory, as far as
@@ -218,15 +226,20 @@ def make_spec_dispatch(model, sp: SamplingParams, k_steps: int, n_spec: int, *,
     fields when chunked).  Like the plain dispatch it is a Python loop of
     device work with no host sync.
 
-    The reference's two-pass families (SSM, hybrid, sliding window) would
-    need the pre-round cache for a second verify pass; the port writes the
-    pools in place and runs the dense family only, so they raise."""
-    cfg = model.cfg
-    if cfg.family != "dense" or cfg.sliding_window:
-        raise NotImplementedError(
-            f"speculative decoding of family {cfg.family!r} (sliding window "
-            f"{cfg.sliding_window}) needs the reference's second verify pass over the "
-            f"pre-round cache, which the port's in-place pools do not keep; not ported")
+    A stack with Mamba layers runs the two-pass round (step 5 of the module
+    docstring)."""
+    # every per-slot leaf (a Mamba layer's state): what a two-pass round
+    # snapshots and puts back
+    def state_leaves(cache):
+        return [leaf for grp, _, _ in model.groups
+                for name, leaf in cache[grp]["L0"].items() if name not in ("pk", "pv")]
+
+    def restore(cache, saved):
+        for leaf, old in zip(state_leaves(cache), saved):
+            leaf.copy_(old)
+
+    two_pass = model.spec[0] == "mamba"
+    paged_kv = model.spec[0] == "attn"
     S1 = n_spec + 1
 
     @torch.no_grad()
@@ -237,21 +250,27 @@ def make_spec_dispatch(model, sp: SamplingParams, k_steps: int, n_spec: int, *,
         cols = torch.arange(S1, device=dev)[None, :]
         toks = torch.empty((B, k_steps, S1), dtype=_I32, device=dev)
         emitted = torch.empty((B, k_steps, S1), dtype=torch.bool, device=dev)
-        bs = cache["stack"]["L0"]["pk"].shape[2]
-        cap = cache["tbl"].shape[1] * bs
+        if paged_kv:
+            bs = cache["stack"]["L0"]["pk"].shape[2]
+            cap = cache["tbl"].shape[1] * bs
         st = state
         for r in range(k_steps):
             ctr, active, lengths = st["ctr"], st["active"], cache["lengths"]
             nf0 = cache["n_free"]              # the round's pops, by free-stack delta
-            # ---- 1. span allocation and copy-on-write ----
-            bstate, cow_src, cow_dst, blocked = alloc_span(
-                {k: cache[k] for k in BSTATE_KEYS}, lengths, S1, bs, cap, False, cow=cow)
-            cache = {**cache, **bstate}
-            if cow:
-                cache = cow_copy_blocks(cache, cow_src, cow_dst)
-                ctr = bump(ctr, cow_copies=(cow_src != cow_dst).sum(dtype=_I32))
+            # ---- 1. span allocation and copy-on-write (a pure-SSM stack
+            # has no pools: nothing to allocate, no slot blocked) ----
+            blocked = torch.zeros_like(active)
+            if paged_kv:
+                bstate, cow_src, cow_dst, blocked = alloc_span(
+                    {k: cache[k] for k in BSTATE_KEYS}, lengths, S1, bs, cap, False, cow=cow)
+                cache = {**cache, **bstate}
+                if cow:
+                    cache = cow_copy_blocks(cache, cow_src, cow_dst)
+                    ctr = bump(ctr, cow_copies=(cow_src != cow_dst).sum(dtype=_I32))
             active_r = active & ~blocked
             sa = cache["slot_active"]
+            if two_pass:    # the pre-round state, which the draft overwrites
+                saved = [leaf.clone() for leaf in state_leaves(cache)]
             # ---- 2. draft (quantized tree) ----
             dcache, cur = {**cache, "slot_active": sa & ~blocked}, st["cur"]
             drafts, dlogits = [], []
@@ -263,9 +282,11 @@ def make_spec_dispatch(model, sp: SamplingParams, k_steps: int, n_spec: int, *,
                 cur = nxt[:, None]
             drafts = torch.stack(drafts, dim=1)                      # [B, n]
             # ---- 3. verify (full-precision tree, one forward) ----
+            if two_pass:
+                restore(dcache, saved)
+            vtoks = torch.cat([st["cur"], drafts], dim=1)
             v_logits, cache = model.verify_chunk_paged(
-                params, torch.cat([st["cur"], drafts], dim=1),
-                {**dcache, "lengths": lengths, "slot_active": sa}, lengths,
+                params, vtoks, {**dcache, "lengths": lengths, "slot_active": sa}, lengths,
                 torch.where(active_r, S1, 0))
             # ---- 4. accept ----
             if sp.greedy:
@@ -274,7 +295,13 @@ def make_spec_dispatch(model, sp: SamplingParams, k_steps: int, n_spec: int, *,
                 out, a = rejection_accept(gen, drafts, torch.stack(dlogits, dim=1), v_logits,
                                           sp, depth)
             m = torch.where(active_r, torch.minimum(a + 1, st["remaining"]), 0)
-            # ---- 5. commit and rollback ----
+            # ---- 5. commit and rollback (two-pass: the accepted rows again
+            # from the pre-round state) ----
+            if two_pass:
+                restore(cache, saved)
+                _, cache = model.verify_chunk_paged(params, vtoks, {**cache, "lengths": lengths},
+                                                    lengths, m)
+                del saved
             cache = {**cache, "lengths": torch.where(active_r, lengths + m, lengths)}
             # ---- 6. emit within the budget ----
             em = active_r[:, None] & (cols < m[:, None])

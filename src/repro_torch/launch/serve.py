@@ -28,12 +28,16 @@ reference, with the same checks and messages, and one more, ``--device``
   uses a ``SPEC_VOCAB_CAP``-token language (its ids are valid ids of the
   model's vocabulary) and says so; ``--reduced`` (512 tokens) uses the
   full vocabulary, as the reference does.
+* **Every family on every engine** — ``--paged``, ``--chunk-size``,
+  ``--prefix-cache`` and ``--spec-draft`` serve the MoE (``deepseek-v3``)
+  and SSM (``mamba2-780m``) archs too; a configuration the engine's family
+  rules refuse (``--spec-draft`` on MoE below dropless capacity, an SSM
+  ``--chunk-size`` off the ``ssm_chunk`` grid) exits with the engine's
+  message before any weights are made.
 * **Not ported**: ``--mesh`` other than 0 (sharded serving, ROADMAP Queue
-  A 9) exits with a message, and so do ``--paged`` (with ``--chunk-size``,
-  ``--prefix-cache``, ``--spec-draft``) on an SSM arch (``mamba2-780m``)
-  or an MoE arch (``deepseek-v3``), which serve on the contiguous engine
-  only (ROADMAP Queue A 5), and ``--daq --method smoothquant`` / ``awq`` on
-  an MoE arch (their calibration forward runs no MoE layer yet); the
+  A 9) exits with a message, and so does ``--daq --method smoothquant`` /
+  ``awq`` on an MoE arch (their calibration forward runs no MoE layer yet,
+  ROADMAP Queue A 5); the
   reference's ``compiles:`` line (its jit cache sizes) has no counterpart,
   since the port compiles nothing at serve time.
 
@@ -62,7 +66,7 @@ from repro_torch.configs import reduced as reduce_cfg
 from repro_torch.core.policy import tree_map
 from repro_torch.data import LanguageSpec, sample_batch
 from repro_torch.engine import Engine, EngineConfig, SamplingParams
-from repro_torch.engine.engine import refuse_unported
+from repro_torch.engine.engine import check_config
 from repro_torch.models import build_model
 
 # the largest synthetic-language vocabulary the CLI builds: its [V, V]
@@ -256,8 +260,8 @@ def main(argv: list[str] | None = None):
                         n_spec=args.n_spec if args.spec_draft else 0,
                         spec_dynamic=not args.spec_static)
     try:                    # before any weights are made or quantized
-        refuse_unported(cfg, ecfg)
-    except NotImplementedError as e:
+        check_config(cfg, ecfg)
+    except ValueError as e:
         raise SystemExit(f"{cfg.name}: {e}")
     if args.daq and cfg.family == "moe":
         from repro_torch.quantize import available_methods, get_method

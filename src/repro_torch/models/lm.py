@@ -18,19 +18,22 @@ layer's decode cache is K/V rows for attention and the recurrent state
 the port loops over layers in Python, slicing each layer's views out of the
 stacked leaves; decode caches are updated in place (the torch counterpart
 of the reference's buffer donation).  The paged decode cache
-(``init_paged_cache``, ``decode_step_paged``) holds per-layer K/V block
-pools ``[n_layers, num_blocks + 1, block_size, Kv, hd]`` under
-``cache["stack"]["L0"]`` and the allocator state of ``engine/paged.py`` at
-the cache's top level, as the reference's does; ``prefill_chunk_paged``
-runs one piece of each slot's prompt through that cache (chunked prefill,
-prefix-hit tails), and ``verify_chunk_paged`` a speculative round's draft
-tokens (each row the decode step at its position, on the CPU bit for bit).
-``run_stack_train`` is the full-sequence forward with no cache: the one
-calibration walks (``data/synthetic.py::_full_logits``) without grad, and
-the one ``Model.loss_fn`` trains through with grad, each layer under the
+(``init_paged_cache``, ``decode_step_paged``) holds, under each group's
+``L0``, per-layer K/V block pools ``[n, num_blocks + 1, block_size, Kv,
+hd]`` for attention layers and the per-slot state for Mamba layers
+(``init_layer_cache_paged``), and the allocator state of
+``engine/paged.py`` at the cache's top level, as the reference's does;
+``prefill_chunk_paged`` runs one piece of each slot's prompt through that
+cache (chunked prefill, prefix-hit tails; an MoE layer at full capacity, a
+Mamba layer through ``mamba_prefill_chunk``), and ``verify_chunk_paged`` a
+speculative round's draft tokens (each row the decode step at its
+position, on the CPU bit for bit; a Mamba layer through
+``mamba_verify_chunk``).  ``run_stack_train`` is the full-sequence forward
+with no cache: the one calibration walks
+(``data/synthetic.py::_full_logits``) without grad, and the one
+``Model.loss_fn`` trains through with grad, each layer under the
 reference's remat policies (``_remat``); it runs no MoE layer (MoE training
-is ROADMAP Queue A 5).  The paged, chunked and speculative forwards run the
-dense family only; an SSM or MoE model raises there (ROADMAP Queue A 5).
+is ROADMAP Queue A 5).
 """
 from __future__ import annotations
 
@@ -116,16 +119,29 @@ def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, cache_len: i
             "v": torch.zeros(shape, dtype=cache_dtype(), device=device)}
 
 
-def _ffn(p: dict, x, cfg: ModelConfig, spec: LayerSpec):
+def _ffn(p: dict, x, cfg: ModelConfig, spec: LayerSpec, full_capacity: bool = False):
     """The residual feed-forward half of a layer (none for Mamba layers; an
-    MoE layer routes with capacity and drops its auxiliary loss, as the
-    reference's prefill and decode do)."""
+    MoE layer routes with capacity, or at ``full_capacity``, and drops its
+    auxiliary loss, as the reference's serving forwards do)."""
     if spec[1] == "none":
         return x
     h = apply_norm(p["ln2"], x, cfg.norm_eps)
     if spec[1] == "moe":
-        return x + MOE.apply_moe(p["moe"], h, cfg)[0]
+        return x + MOE.apply_moe(p["moe"], h, cfg, full_capacity=full_capacity)[0]
     return x + apply_mlp(p["mlp"], h)
+
+
+def init_layer_cache_paged(cfg: ModelConfig, spec: LayerSpec, batch: int, num_blocks: int,
+                           block_size: int, device) -> dict:
+    """Paged decode cache of one layer: attention's K/V become block pools
+    ``pk`` / ``pv`` [num_blocks + 1, block_size, Kv, hd] (the last block is
+    the trash sink, ``engine/paged.py``); a Mamba layer's state has no
+    sequence axis to page and stays per slot."""
+    if spec[0] == "mamba":
+        return SSM.init_mamba_cache(cfg, batch, device)
+    shape = (num_blocks + 1, block_size, cfg.n_kv_heads, cfg.resolved_head_dim)
+    return {"pk": torch.zeros(shape, dtype=cache_dtype(), device=device),
+            "pv": torch.zeros(shape, dtype=cache_dtype(), device=device)}
 
 
 def _init_stack(gen, cfg: ModelConfig, n: int, dtype, device, spec: LayerSpec) -> dict:
@@ -204,10 +220,18 @@ def _attn_decode_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelConfig):
     return qlinear.matmul(out.reshape(B, 1, -1), p["wo"])
 
 
-def apply_layer_decode_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelConfig):
-    x = x + _attn_decode_paged(p["attn"], apply_norm(p["ln1"], x, cfg.norm_eps), cache,
-                               pctx, cfg)
-    return x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm_eps))
+def apply_layer_decode_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelConfig,
+                             spec: LayerSpec):
+    """One paged decode step of a layer: attention against the block pools,
+    a Mamba layer's per-slot state stepped for the slots in
+    ``pctx["keep"]`` only; an MoE layer routes with capacity, as the
+    contiguous decode does."""
+    h = apply_norm(p["ln1"], x, cfg.norm_eps)
+    if spec[0] == "mamba":
+        x = x + SSM.mamba_decode(p["mamba"], h, cache, cfg, keep=pctx["keep"])[0]
+    else:
+        x = x + _attn_decode_paged(p["attn"], h, cache, pctx, cfg)
+    return _ffn(p, x, cfg, spec)
 
 
 def _attn_prefill_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelConfig):
@@ -229,10 +253,30 @@ def _attn_prefill_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelConfig):
     return qlinear.matmul(out.reshape(B, C, -1), p["wo"])
 
 
-def apply_layer_prefill_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelConfig):
-    x = x + _attn_prefill_paged(p["attn"], apply_norm(p["ln1"], x, cfg.norm_eps), cache,
-                                pctx, cfg)
-    return x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm_eps))
+def _mamba_chunk(fn, p: dict, x, h, cache: dict, pctx: dict, cfg: ModelConfig):
+    """A Mamba layer over one chunk (``fn``: ``mamba_prefill_chunk`` or
+    ``mamba_verify_chunk``), the slots' new state written into the layer's
+    leaves in place."""
+    y, new = fn(p["mamba"], x, h, cfg, cache, pctx["valid"])
+    for name, t in new.items():
+        cache[name].copy_(t)
+    return y
+
+
+def apply_layer_prefill_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelConfig,
+                              spec: LayerSpec):
+    """One prefill chunk through a layer: attention writes the chunk's rows
+    into the pools, a Mamba layer carries each slot's state from chunk to
+    chunk.  An MoE layer routes at full capacity: the chunk's batch mixes
+    unrelated slots' rows and pads, and competing for capacity with them
+    would make a token's output depend on its batch (chunked == one-shot
+    holds where the one-shot routing drops nothing)."""
+    h = apply_norm(p["ln1"], x, cfg.norm_eps)
+    if spec[0] == "mamba":
+        x = x + _mamba_chunk(SSM.mamba_prefill_chunk, p, x, h, cache, pctx, cfg)
+    else:
+        x = x + _attn_prefill_paged(p["attn"], h, cache, pctx, cfg)
+    return _ffn(p, x, cfg, spec, full_capacity=True)
 
 
 def _attn_verify_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelConfig):
@@ -253,15 +297,26 @@ def _attn_verify_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelConfig):
     return qlinear.matmul(out.reshape(B, C, -1), p["wo"])
 
 
-def apply_layer_verify_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelConfig):
-    x = x + _attn_verify_paged(p["attn"], apply_norm(p["ln1"], x, cfg.norm_eps), cache,
-                               pctx, cfg)
-    return x + apply_mlp(p["mlp"], apply_norm(p["ln2"], x, cfg.norm_eps))
+def apply_layer_verify_paged(p: dict, x, cache: dict, pctx: dict, cfg: ModelConfig,
+                             spec: LayerSpec):
+    """One speculative-verify chunk through a layer, each row the decode
+    step at its position: attention as :func:`_attn_verify_paged`, a Mamba
+    layer the exact recurrence row by row (``mamba_verify_chunk``), an MoE
+    layer at full capacity (its rows then equal the decode step's wherever
+    the decode's own routing drops nothing, which the engine requires of a
+    speculative MoE serve)."""
+    h = apply_norm(p["ln1"], x, cfg.norm_eps)
+    if spec[0] == "mamba":
+        x = x + _mamba_chunk(SSM.mamba_verify_chunk, p, x, h, cache, pctx, cfg)
+    else:
+        x = x + _attn_verify_paged(p["attn"], h, cache, pctx, cfg)
+    return _ffn(p, x, cfg, spec, full_capacity=True)
 
 
 def cow_copy_blocks(cache: dict, src: torch.Tensor, dst: torch.Tensor) -> dict:
     """A speculative round's copy-on-write: block ``src[b]``'s rows go into
-    block ``dst[b]`` in every layer's ``pk`` / ``pv`` pool, in place, before
+    block ``dst[b]`` in every attention layer's ``pk`` / ``pv`` pool (the
+    ``prefix`` and ``stack`` groups), in place, before
     any write of the round (``engine/paged.py::alloc_span`` rewired the
     slot's shared first span block to ``dst``).  The reference skips the
     copy with a branch on whether any slot copies; a tensor-valued branch
@@ -269,8 +324,10 @@ def cow_copy_blocks(cache: dict, src: torch.Tensor, dst: torch.Tensor) -> dict:
     copy carry ``src == dst``, the trash block, and copying a block onto
     itself changes no bit."""
     src, dst = src.long(), dst.long()
-    for pool in cache["stack"]["L0"].values():
-        pool[:, dst] = pool[:, src]
+    for grp in ("prefix", "stack"):
+        for name, pool in cache.get(grp, {}).get("L0", {}).items():
+            if name in ("pk", "pv"):
+                pool[:, dst] = pool[:, src]
     return cache
 
 
@@ -379,8 +436,9 @@ class Model:
     ``init_cache``, ``prefill``, ``decode_step`` with the reference
     ``Model``'s signatures (a ``torch.Generator`` in place of a PRNG key).
     ``groups`` lists each stacked subtree with its layer spec, the MoE
-    family's dense prefix first.  The paged forwards and ``loss_fn`` run
-    the dense (and ``loss_fn`` the SSM) family only."""
+    family's dense prefix first; the paged forwards (``init_paged_cache``,
+    ``decode_step_paged``, ``prefill_chunk_paged``, ``verify_chunk_paged``)
+    run every group.  ``loss_fn`` trains the dense and SSM families."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         if cfg.sliding_window:
@@ -404,17 +462,6 @@ class Model:
             p[name] = _init_stack(gen, cfg, n, dt, dev, spec)
         p["final_norm"] = init_norm(cfg, dt, dev)
         return p
-
-    def _dense_only(self, what: str) -> None:
-        """Refuse a paged forward on a stack it would misread: an SSM
-        model's state has no blocks, an MoE model's routing and prefix
-        stack have no paged path (ROADMAP Queue A 5)."""
-        if self.spec != ATTN_MLP or len(self.groups) > 1:
-            raise NotImplementedError(
-                f"{what} of family {self.cfg.family!r} is not ported yet: the paged, "
-                f"chunked and speculative engines' SSM paths (per-slot SSM leaves, "
-                f"mamba_prefill_chunk, mamba_verify_chunk) and MoE paths (full-capacity "
-                f"routing, the dense-prefix stack's block pools) are ROADMAP Queue A 5")
 
     def loss_fn(self, params: dict, batch: dict, remat: str = "full"):
         """Mean next-token loss of ``batch`` (``tokens``, ``labels`` [B, S];
@@ -489,52 +536,80 @@ class Model:
 
     def init_paged_cache(self, batch: int, cache_len: int, *, block_size: int,
                          num_blocks: int) -> dict:
-        """Paged decode cache: per-layer block pools ``pk`` / ``pv``
-        ``[n_layers, num_blocks + 1, block_size, Kv, hd]`` (the last block is
-        the trash sink), per-slot ``lengths``, and the allocator state of
+        """Paged decode cache: each leaf of ``init_layer_cache_paged`` stacked
+        on a leading layer axis under ``<group>/L0`` for each of ``groups``
+        (attention layers' block pools ``pk`` / ``pv`` ``[n, num_blocks + 1,
+        block_size, Kv, hd]``, the last block the trash sink; a Mamba layer's
+        per-slot state), per-slot ``lengths``, and the allocator state of
         ``engine/paged.py`` (one table of ``ceil(cache_len / block_size)``
-        entries per slot, shared by every layer)."""
+        entries per slot, shared by every attention layer)."""
         from repro_torch.engine.paged import blocks_for, init_block_state
-        self._dense_only("init_paged_cache")
-        cfg = self.cfg
-        shape = (cfg.n_layers, num_blocks + 1, block_size, cfg.n_kv_heads,
-                 cfg.resolved_head_dim)
-        z = lambda: torch.zeros(shape, dtype=cache_dtype(), device=self.device)
-        return {"stack": {"L0": {"pk": z(), "pv": z()}},
-                "lengths": torch.zeros(batch, dtype=torch.int32, device=self.device),
-                **init_block_state(batch, blocks_for(cache_len, block_size), num_blocks,
-                                   self.device)}
+        cache = {}
+        for name, spec, n in self.groups:
+            one = init_layer_cache_paged(self.cfg, spec, batch, num_blocks, block_size,
+                                         self.device)
+            cache[name] = {"L0": {k: torch.zeros((n,) + v.shape, dtype=v.dtype,
+                                                 device=self.device)
+                                  for k, v in one.items()}}
+            del one
+        cache["lengths"] = torch.zeros(batch, dtype=torch.int32, device=self.device)
+        cache.update(init_block_state(batch, blocks_for(cache_len, block_size), num_blocks,
+                                      self.device))
+        return cache
+
+    def _run_paged(self, layer_fn, params: dict, x, cache: dict, pctx: dict):
+        """``x`` through every group's layers in order (the dense prefix
+        first), each with its views of the params and of the paged cache."""
+        for name, spec, _ in self.groups:
+            stack, leaves = params[name]["L0"], cache[name]["L0"]
+            for i in range(n_stacked(stack)):
+                x = layer_fn(layer_view(stack, i), x, layer_view(leaves, i), pctx, self.cfg,
+                             spec)
+        return x
+
+    def _span_ctx(self, cache: dict, start, valid, width: int, shared_until=None) -> dict:
+        """The chunk forwards' context: ``start`` / ``valid``, and for a stack
+        with attention the block table and the span's write targets
+        (``span_targets``), shared by every attention layer."""
+        from repro_torch.engine.paged import BSTATE_KEYS, span_targets
+        pctx = {"start": start, "valid": valid}
+        if self.spec[0] == "attn":
+            bs = cache["stack"]["L0"]["pk"].shape[2]
+            wblk, woff = span_targets({k: cache[k] for k in BSTATE_KEYS}, start, valid, width,
+                                      bs, cache["tbl"].shape[1] * bs, False, shared_until)
+            pctx.update(tbl=cache["tbl"], wblk=wblk.long(), woff=woff.long())
+        return pctx
 
     @torch.no_grad()
     def decode_step_paged(self, params: dict, tokens: torch.Tensor, cache: dict,
                           cow: bool = False):
         """tokens [B, 1] -> (logits [B, V], paged cache with lengths + 1).
-        The step's block allocation and write targets (``alloc_step``) are
-        computed once and shared by every layer; the pools are written in
-        place, the allocator state is returned new.  With ``cow=True``
-        (prefix caching) a write landing in a shared block pops a private
-        copy first, and each layer copies the block's rows into it."""
+        For a stack with attention the step's block allocation and write
+        targets (``alloc_step``) are computed once and shared by every
+        attention layer; the pools are written in place, the allocator state
+        is returned new.  With ``cow=True`` (prefix caching) a write landing
+        in a shared block pops a private copy first, and each layer copies
+        the block's rows into it.  A pure-SSM stack has no pools to manage:
+        its layers step each ``slot_active`` slot's state (``keep``), as the
+        attention layers write only those slots' rows."""
         from repro_torch.engine.paged import BSTATE_KEYS, alloc_step
-        self._dense_only("decode_step_paged")
         cfg = self.cfg
         x = embed_tokens(params["embed"], tokens)
         lengths = cache["lengths"]
-        pools = cache["stack"]["L0"]
-        bs = pools["pk"].shape[2]
-        bstate, wblk, woff, cow_src = alloc_step({k: cache[k] for k in BSTATE_KEYS}, lengths,
-                                                 bs, cache["tbl"].shape[1] * bs, ring=False,
-                                                 cow=cow)
-        pctx = {"lengths": lengths, "tbl": bstate["tbl"], "wblk": wblk.long(),
-                "woff": woff.long()}
-        if cow:
-            pctx["cow_src"] = cow_src.long()
-        stack = params["stack"]["L0"]
-        for i in range(n_stacked(stack)):
-            x = apply_layer_decode_paged(layer_view(stack, i), x, layer_view(pools, i),
-                                         pctx, cfg)
+        pctx = {"lengths": lengths, "keep": cache["slot_active"]}
+        new = {}
+        if self.spec[0] == "attn":
+            bs = cache["stack"]["L0"]["pk"].shape[2]
+            new, wblk, woff, cow_src = alloc_step({k: cache[k] for k in BSTATE_KEYS}, lengths,
+                                                  bs, cache["tbl"].shape[1] * bs, ring=False,
+                                                  cow=cow)
+            pctx.update(tbl=new["tbl"], wblk=wblk.long(), woff=woff.long())
+            if cow:
+                pctx["cow_src"] = cow_src.long()
+        x = self._run_paged(apply_layer_decode_paged, params, x, cache, pctx)
         x = apply_norm(params["final_norm"], x, cfg.norm_eps)
         logits = lm_logits(params["embed"], x)[:, 0]
-        return logits, {**cache, **bstate, "lengths": lengths + 1}
+        return logits, {**cache, **new, "lengths": lengths + 1}
 
     @torch.no_grad()
     def prefill_chunk_paged(self, params: dict, tokens: torch.Tensor, cache: dict,
@@ -548,24 +623,15 @@ class Model:
         blocks and are not written: the cached rows hold the same values);
         ``tiles`` are the flash tiles, as in :meth:`prefill`.  Returns the
         logits of each slot's last valid row (garbage where ``valid == 0``)
-        and the cache with the chunk's K/V written in place and ``lengths``
-        advanced to ``start + valid``."""
-        from repro_torch.engine.paged import BSTATE_KEYS, span_targets
-        self._dense_only("prefill_chunk_paged")
+        and the cache with the chunk's K/V and each Mamba layer's state
+        written in place and ``lengths`` advanced to ``start + valid``."""
         cfg = self.cfg
         B, C = tokens.shape
         x = embed_tokens(params["embed"], tokens)
         start, valid = start.to(torch.int32), valid.to(torch.int32)
-        pools = cache["stack"]["L0"]
-        bs = pools["pk"].shape[2]
-        wblk, woff = span_targets({k: cache[k] for k in BSTATE_KEYS}, start, valid, C, bs,
-                                  cache["tbl"].shape[1] * bs, False, shared_until)
-        pctx = {"start": start, "valid": valid, "tbl": cache["tbl"], "wblk": wblk.long(),
-                "woff": woff.long(), "q_chunk": tiles[0], "kv_chunk": tiles[1]}
-        stack = params["stack"]["L0"]
-        for i in range(n_stacked(stack)):
-            x = apply_layer_prefill_paged(layer_view(stack, i), x, layer_view(pools, i),
-                                          pctx, cfg)
+        pctx = {**self._span_ctx(cache, start, valid, C, shared_until),
+                "q_chunk": tiles[0], "kv_chunk": tiles[1]}
+        x = self._run_paged(apply_layer_prefill_paged, params, x, cache, pctx)
         x = apply_norm(params["final_norm"], x, cfg.norm_eps)
         idx = (valid - 1).clamp(0, C - 1).long()
         xg = x[torch.arange(B, device=x.device), idx][:, None]
@@ -579,30 +645,21 @@ class Model:
         """Speculative-verify forward: ``tokens`` [B, C] are rows ``start[b]
         .. start[b] + valid[b] - 1`` of each slot's continuation.  Returns
         the logits of every row [B, C, V] and the cache with the rows' K/V
-        written in place and ``lengths`` at ``start + valid``.  Row ``j``'s
-        logits are what ``decode_step_paged`` gives after consuming rows
-        ``< j`` (attention runs the decode softmax over the gathered table;
-        on the CPU bit for bit at the tests' widths, PERF.md decision a),
-        which makes greedy speculative decoding token-exact against the
-        non-speculative engine (``engine/spec.py``).  ``valid[b] == 0``
-        leaves the slot as it was; rows at or past ``valid[b]`` write
-        nothing and give garbage logits."""
-        from repro_torch.engine.paged import BSTATE_KEYS, span_targets
-        self._dense_only("verify_chunk_paged")
+        written and each Mamba layer's state advanced by ``valid[b]`` steps,
+        in place, and ``lengths`` at ``start + valid``.  Row ``j``'s logits
+        are what ``decode_step_paged`` gives after consuming rows ``< j``
+        (attention runs the decode softmax over the gathered table, a Mamba
+        layer the decode recurrence; on the CPU bit for bit at the tests'
+        widths, PERF.md decision a), which makes greedy speculative decoding
+        token-exact against the non-speculative engine (``engine/spec.py``).
+        ``valid[b] == 0`` leaves the slot as it was; rows at or past
+        ``valid[b]`` write nothing and give garbage logits."""
         cfg = self.cfg
         B, C = tokens.shape
         x = embed_tokens(params["embed"], tokens)
         start, valid = start.to(torch.int32), valid.to(torch.int32)
-        pools = cache["stack"]["L0"]
-        bs = pools["pk"].shape[2]
-        wblk, woff = span_targets({k: cache[k] for k in BSTATE_KEYS}, start, valid, C, bs,
-                                  cache["tbl"].shape[1] * bs, False)
-        pctx = {"start": start, "valid": valid, "tbl": cache["tbl"], "wblk": wblk.long(),
-                "woff": woff.long()}
-        stack = params["stack"]["L0"]
-        for i in range(n_stacked(stack)):
-            x = apply_layer_verify_paged(layer_view(stack, i), x, layer_view(pools, i),
-                                         pctx, cfg)
+        x = self._run_paged(apply_layer_verify_paged, params, x, cache,
+                            self._span_ctx(cache, start, valid, C))
         x = apply_norm(params["final_norm"], x, cfg.norm_eps)
         logits = lm_logits(params["embed"], x)
         return logits, {**cache, "lengths": torch.where(valid > 0, start + valid,

@@ -19,9 +19,14 @@ loops over chunks only for the state hand-over, where the reference
 order.  A decode step updates the cache's ``h`` and conv history in
 place (the torch counterpart of the reference's buffer donation).
 
-Not ported yet: ``mamba_prefill_chunk`` and ``mamba_verify_chunk`` (the
-paged, chunked and speculative engines' SSM paths, ROADMAP Queue A 5) and
-``_causal_conv``'s ``valid`` rows.
+The paged engines' two chunk forms thread a slot's state through a piece
+of ``C`` rows whose rows ``>= valid[b]`` are pads: ``mamba_prefill_chunk``
+(the SSD form, pads masked to exact no-ops, so a chunked prefill on the
+``ssm_chunk`` grid continues the one-shot prefill) and
+``mamba_verify_chunk`` (the decode recurrence stepped row by row, each row
+the op sequence of ``mamba_decode``).  ``mamba_decode``'s ``keep`` leaves
+the state of the slots outside it as it was (the paged decode's inactive
+and prefilling slots).
 """
 from __future__ import annotations
 
@@ -69,12 +74,14 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 state: torch.Tensor | None = None):
+                 state: torch.Tensor | None = None, valid: torch.Tensor | None = None):
     """Depthwise causal conv over S.  x [B, S, C]; w [K, C]; ``state``
     [B, K-1, C] prepends history (a decode step, or a prefill continuing a
     cache).  The K taps are added one at a time in fp32, in the
     reference's order.  Returns (silu(out) [B, S, C] fp32, new_state
-    [B, K-1, C]: the last K-1 rows of history and input)."""
+    [B, K-1, C]: the last K-1 rows of history and input, or with ``valid``
+    [B] (a right-padded chunk) the K-1 rows before row ``valid[b]``, so pad
+    rows never enter the history)."""
     K = w.shape[0]
     Bsz, S, C = x.shape
     if state is None:
@@ -84,7 +91,11 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     for k in range(K):
         out = out + ext[:, k:k + S].float() * w[k].float()
     out = out + b.float()
-    return F.silu(out), ext[:, S:]
+    if valid is None:
+        return F.silu(out), ext[:, S:]
+    # ext row (K-1) + t holds input row t
+    idx = valid.long()[:, None] + torch.arange(K - 1, device=x.device)[None]
+    return F.silu(out), torch.gather(ext, 1, idx[..., None].expand(-1, -1, C))
 
 
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
@@ -95,10 +106,12 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     return g * torch.rsqrt(ms + eps) * scale.float()
 
 
-def _project(p: dict, h: torch.Tensor, cfg: ModelConfig, conv_state: dict | None = None):
+def _project(p: dict, h: torch.Tensor, cfg: ModelConfig, conv_state: dict | None = None,
+             valid: torch.Tensor | None = None):
     """The shared front half: four projections, the two convs and dt.
     Returns (z, xh [B, S, nh, P] fp32, Bc, Cc, dt [B, S, nh] fp32,
-    new conv state {"conv_x", "conv_bc"} in bf16)."""
+    new conv state {"conv_x", "conv_bc"} in bf16, as of row ``valid[b]``
+    where given)."""
     Bsz, S, _ = h.shape
     N, nh, P = cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
     z = qlinear.matmul(h, p["in_z"])
@@ -107,8 +120,8 @@ def _project(p: dict, h: torch.Tensor, cfg: ModelConfig, conv_state: dict | None
     dt_raw = qlinear.matmul(h, p["in_dt"])
     cs_x = conv_state["conv_x"] if conv_state else None
     cs_bc = conv_state["conv_bc"] if conv_state else None
-    xc, ns_x = _causal_conv(xc, p["conv_x_w"], p["conv_x_b"], cs_x)
-    bc, ns_bc = _causal_conv(bc, p["conv_bc_w"], p["conv_bc_b"], cs_bc)
+    xc, ns_x = _causal_conv(xc, p["conv_x_w"], p["conv_x_b"], cs_x, valid)
+    bc, ns_bc = _causal_conv(bc, p["conv_bc_w"], p["conv_bc_b"], cs_bc, valid)
     xh = xc.reshape(Bsz, S, nh, P)
     Bc, Cc = bc[..., :N], bc[..., N:]
     dt = softplus(dt_raw.float() + p["dt_bias"].float())
@@ -189,6 +202,63 @@ def mamba_train(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return out
 
 
+def mamba_prefill_chunk(p: dict, x_in: torch.Tensor, h: torch.Tensor, cfg: ModelConfig,
+                        cache: dict, valid: torch.Tensor):
+    """One prefill chunk through the Mamba-2 sublayer, continuing each
+    slot's state.  ``h`` [B, C, D] holds rows ``start .. start + C - 1`` of
+    each slot's prompt; rows ``>= valid[b]`` are pads, masked to exact
+    no-ops of the SSD recurrence (``x``, ``dt``, ``B`` and ``C`` zero, the
+    zeros ``ssd_scan`` pads its last chunk with), so the carried state and
+    the real rows' outputs continue the one-shot :func:`mamba_forward` when
+    chunk boundaries lie on multiples of ``cfg.ssm_chunk`` (the engine
+    requires ``chunk_size % ssm_chunk == 0``).  A slot with ``valid == 0``
+    keeps its state.  Returns (out [B, C, D], new cache {"h", "conv_x",
+    "conv_bc"}); the caller writes it into the slot's leaves."""
+    Bsz, C, _ = h.shape
+    z, xh, Bc, Cc, dt, conv_state = _project(p, h, cfg, cache, valid=valid)
+    vm = torch.arange(C, device=h.device)[None, :] < valid[:, None]       # [B, C]
+    xh = torch.where(vm[:, :, None, None], xh, 0.0)
+    dt = torch.where(vm[:, :, None], dt, 0.0)
+    Bc = torch.where(vm[:, :, None], Bc, 0.0)
+    Cc = torch.where(vm[:, :, None], Cc, 0.0)
+    y, h_fin = ssd_scan(xh, Bc, Cc, dt, p["a_log"], cfg.ssm_chunk, cache["h"])
+    y = y + p["d_skip"].float()[None, None, :, None] * xh.float()
+    y = _gated_norm(y.reshape(Bsz, C, cfg.resolved_d_inner), z, p["norm_scale"])
+    out = qlinear.matmul(y.to(x_in.dtype), p["out_proj"])
+    return out, {"h": h_fin, **conv_state}
+
+
+def mamba_verify_chunk(p: dict, x_in: torch.Tensor, h: torch.Tensor, cfg: ModelConfig,
+                       cache: dict, valid: torch.Tensor):
+    """Speculative-verify chunk: the exact recurrence stepped row by row,
+    each row the op sequence of :func:`mamba_decode` (the same projections
+    and conv taps, ``h = h * a + dBx`` and the same einsum shapes), so row
+    ``j``'s output is what ``j + 1`` successive decode steps give (on the
+    CPU bit for bit), where :func:`mamba_prefill_chunk`'s SSD form would
+    reorder the sums.  Rows ``>= valid[b]`` are state no-ops (``dt = 0``:
+    decay 1, update 0); a slot with ``valid == 0`` keeps its state and conv
+    history.  Returns (out [B, C, D], new cache); output rows at or past
+    ``valid[b]`` are garbage."""
+    Bsz, C, _ = h.shape
+    z, xh, Bc, Cc, dt, conv_state = _project(p, h, cfg, cache, valid=valid)
+    A = -torch.exp(p["a_log"].float())
+    vm = torch.arange(C, device=h.device)[None, :] < valid[:, None]
+    dt = torch.where(vm[:, :, None], dt, 0.0)
+    x32 = xh.float()
+    hst, ys = cache["h"], []
+    for t in range(C):
+        dt0 = dt[:, t]
+        a = torch.exp(A[None] * dt0)
+        x0 = x32[:, t]
+        dBx = (x0 * dt0[..., None])[..., None] * Bc[:, t].float()[:, None, None, :]
+        hst = hst * a[..., None, None] + dBx
+        ys.append(torch.einsum("bn,bhpn->bhp", Cc[:, t].float(), hst))
+    y = torch.stack(ys, dim=1) + p["d_skip"].float()[None, None, :, None] * x32
+    y = _gated_norm(y.reshape(Bsz, C, cfg.resolved_d_inner), z, p["norm_scale"])
+    out = qlinear.matmul(y.to(x_in.dtype), p["out_proj"])
+    return out, {"h": hst, **conv_state}
+
+
 def init_mamba_cache(cfg: ModelConfig, batch: int, device) -> dict:
     """Zero decode state of one layer: ``h`` fp32 [B, nh, P, N], conv
     histories bf16 [B, K-1, C]."""
@@ -200,14 +270,21 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, device) -> dict:
             "conv_bc": torch.zeros((batch, cfg.conv_kernel - 1, 2 * N), **bf16)}
 
 
-def mamba_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig):
+def mamba_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig,
+                 keep: torch.Tensor | None = None):
     """One-token decode, x [B, 1, D]: the exact recurrence, one step of
     ``h = a h + dt x B^T; y = C h + D x``.  ``cache``'s ``h``, ``conv_x``
-    and ``conv_bc`` are updated in place.  Returns (out [B, 1, D], cache)."""
+    and ``conv_bc`` are updated in place; with ``keep`` [B] only the slots
+    in it step (the others' ``dt`` is 0, a no-op of the recurrence, and
+    their conv history is kept: the in-place form of the reference's
+    per-slot select after a paged decode step).  Returns (out [B, 1, D],
+    cache)."""
     Bsz = x.shape[0]
     z, xh, Bc, Cc, dt, conv_state = _project(p, x, cfg, cache)
     A = -torch.exp(p["a_log"].float())
     dt0 = dt[:, 0]                                                # [B, nh]
+    if keep is not None:
+        dt0 = torch.where(keep[:, None], dt0, 0.0)
     a = torch.exp(A[None] * dt0)
     x0 = xh.float()[:, 0]                                         # [B, nh, P]
     dBx = (x0 * dt0[..., None])[..., None] * Bc[:, 0].float()[:, None, None, :]
@@ -217,6 +294,9 @@ def mamba_decode(p: dict, x: torch.Tensor, cache: dict, cfg: ModelConfig):
     y = y + p["d_skip"].float()[None, :, None] * x0
     y = _gated_norm(y.reshape(Bsz, 1, cfg.resolved_d_inner), z, p["norm_scale"])
     out = qlinear.matmul(y.to(x.dtype), p["out_proj"])
-    cache["conv_x"].copy_(conv_state["conv_x"])
-    cache["conv_bc"].copy_(conv_state["conv_bc"])
+    for name in ("conv_x", "conv_bc"):
+        new = conv_state[name]
+        if keep is not None:
+            new = torch.where(keep[:, None, None], new, cache[name])
+        cache[name].copy_(new)
     return out, cache

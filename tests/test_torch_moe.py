@@ -299,8 +299,8 @@ def test_bf16_model_prefill_and_decode_match_reference(bf16, monkeypatch):
     queue positions behind it): the cache layout, logits to the bf16 rule,
     greedy tokens where the margin allows, and the port's own routing
     sending at least 90 % of each call's tokens to the reference's experts
-    (measured 93-100 %); the paged forwards and training refuse the
-    family."""
+    (measured 93-100 %); the paged engine serves the prompts with the
+    contiguous engine's tokens, and training refuses the family."""
     ref_model, rp, model, params = bf16
     cfg = model.cfg
     rec = _record_routing(monkeypatch, replay=True)
@@ -330,11 +330,13 @@ def test_bf16_model_prefill_and_decode_match_reference(bf16, monkeypatch):
     assert n_cmp >= n_tok // 2
     assert len(rec["agree"]) == 4 * 3 and not rec["ref"] and min(rec["agree"]) >= 0.9
     np.testing.assert_array_equal(pc["lengths"].numpy(), np.asarray(rc["lengths"]))
-    for call in (lambda: model.init_paged_cache(3, 64, block_size=16, num_blocks=12),
-                 lambda: model.decode_step_paged(params, None, {}),
-                 lambda: model.prefill_chunk_paged(params, None, {}, None, None),
-                 lambda: model.verify_chunk_paged(params, None, {}, None, None),
-                 lambda: model.loss_fn(params, {"tokens": torch.from_numpy(toks),
+    monkeypatch.undo()      # the port's own routing from here on
+    kw = dict(slots=B, cache_len=64, k_steps=2)
+    prompts = list(toks)
+    assert Engine(model, params, paged=True, block_size=16, check_invariants=True,
+                  **kw).serve(prompts, gen_tokens=4) == Engine(model, params, **kw).serve(
+                      prompts, gen_tokens=4)
+    for call in (lambda: model.loss_fn(params, {"tokens": torch.from_numpy(toks),
                                                 "labels": torch.from_numpy(toks)}),
                  lambda: TL.run_stack_train(params["stack"]["L0"], None, cfg)):
         with pytest.raises(NotImplementedError, match="Queue A 5"):
@@ -557,13 +559,43 @@ def test_moe_engine_matches_reference_engine_and_host_loop(bf16):
                                 dict(paged=True, n_spec=2)],
                          ids=["paged", "chunked", "prefix", "spec"])
 def test_moe_refuses_the_paged_engines(bf16, kw):
-    _, _, model, params = bf16
+    """The paged, chunked and prefix-cached engines serve the MoE stack at
+    its config's capacity (``paged``: the contiguous engine's tokens); at
+    the dropless capacity (``capacity_factor = n_experts / top_k``) every
+    mode gives the contiguous engine's tokens, and speculation is refused
+    below it with the reference engine's message."""
+    ref_model, rp, model, params = bf16
     extra = {"draft_params": params} if kw.get("n_spec") else {}
-    with pytest.raises(NotImplementedError, match="MoE paths.*Queue A 5"):
-        Engine(model, params, slots=2, cache_len=64, k_steps=4, **kw, **extra)
+    prompts = [_prompt(s, L) for s, L in PROMPTS]
+    base = dict(slots=2, cache_len=64, k_steps=4, block_size=16)
+    if kw.get("n_spec"):
+        msgs = []
+        for eng, m, p in ((RefEngine, ref_model, rp), (Engine, model, params)):
+            with pytest.raises(ValueError, match="routes MoE dropless") as e:
+                eng(m, p, draft_params=p, **base, **kw)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]
+    else:
+        out = Engine(model, params, check_invariants=True, **base, **kw).serve(
+            prompts, gen_tokens=4)
+        assert len(out) == 4 and all(len(o) == 4 for o in out)
+        if kw == dict(paged=True):
+            assert out == Engine(model, params, slots=2, cache_len=64, k_steps=4).serve(
+                prompts, gen_tokens=4)
+    cfg = model.cfg
+    dropless = build_model(dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.top_k), device="cpu")
+    contiguous = Engine(dropless, params, slots=2, cache_len=64, k_steps=4).serve(
+        prompts, gen_tokens=4)
+    assert Engine(dropless, params, check_invariants=True, **base, **kw, **extra).serve(
+        prompts, gen_tokens=4) == contiguous
 
 
 def test_cli_serves_moe_on_the_contiguous_engine_and_refuses_paged(capsys):
+    """The contiguous serve; ``--paged --prefix-cache`` serves too (the warm
+    index is per engine: no hits across CLI runs), ``--spec-draft`` at the
+    config's capacity exits with the engine's dropless message, and the
+    calibrated methods exit before any weights are made."""
     from repro_torch.launch import serve as cli
     argv = ["--arch", "deepseek-v3", "--reduced", "--device", "cpu", "--requests", "3",
             "--batch", "2", "--prompt-len", "20", "--gen", "4", "--k-steps", "2"]
@@ -571,8 +603,14 @@ def test_cli_serves_moe_on_the_contiguous_engine_and_refuses_paged(capsys):
     assert "contiguous cache" in capsys.readouterr().out
     assert len(outs) == 3 and all(len(o) == 4 and all(0 <= t < 512 for t in o) for o in outs)
     assert stats["prefill_calls"] == 2
-    with pytest.raises(SystemExit, match="deepseek-v3-smoke: .*MoE paths.*Queue A 5"):
-        cli.main(argv + ["--paged"])
+    capsys.readouterr()
+    outs, stats = cli.main(argv + ["--paged", "--prefix-cache"])
+    assert "paged" in capsys.readouterr().out
+    assert len(outs) == 3 and all(len(o) == 4 for o in outs)
+    assert stats["counters"]["tokens"] == 12 and stats["chunk_dispatches"] > 0
+    with pytest.raises(SystemExit, match="deepseek-v3-smoke: speculative verify routes MoE "
+                                         "dropless.*capacity_factor 1.25"):
+        cli.main(argv + ["--paged", "--spec-draft", "daq", "--n-spec", "1"])
     for method in ("smoothquant", "awq"):   # refused before any weights are made
         with pytest.raises(SystemExit, match=f"deepseek-v3-smoke: --method {method} .*Queue A 5"):
             cli.main(argv + ["--daq", "--method", method])

@@ -286,7 +286,9 @@ def test_cli_sharded_serving_exits_with_a_message():
 def test_cli_serves_the_ssm_family_on_the_contiguous_engine(capsys):
     """``--arch mamba2-780m --reduced --daq``: prompts crossing the reduced
     config's SSD chunk of 32, one prefill call per admission (equal
-    lengths); the paged engines exit with a message."""
+    lengths); the paged engines serve the same tokens (prefix cache: zero
+    hits; the DAQ draft's speculation at ``--chunk-size`` 32), and a chunk
+    size off the SSD grid exits with the engine's message."""
     argv = ["--arch", "mamba2-780m", "--reduced", "--device", "cpu", "--requests", "3",
             "--batch", "2", "--prompt-len", "40", "--gen", "4", "--k-steps", "2", "--daq"]
     outs, stats = cli.main(argv)
@@ -294,7 +296,13 @@ def test_cli_serves_the_ssm_family_on_the_contiguous_engine(capsys):
     assert len(outs) == 3 and all(len(o) == 4 and all(0 <= t < 512 for t in o) for o in outs)
     assert "method: daq" in text and "contiguous cache" in text
     assert stats["prefill_calls"] == 2 and stats["counters"]["tokens"] == 9
-    for extra in (["--paged"], ["--paged", "--prefix-cache"], ["--paged", "--spec-draft", "daq"]):
-        flags = [a for a in argv if a != "--daq"] + extra
-        with pytest.raises(SystemExit, match="not ported yet.*Queue A 5"):
-            cli.main(flags)
+    plain = [a for a in argv if a != "--daq"]
+    want, _ = cli.main(plain)
+    for extra in (["--paged"], ["--paged", "--prefix-cache"],
+                  ["--paged", "--chunk-size", "32", "--spec-draft", "daq", "--n-spec", "1"]):
+        got, st = cli.main(plain + extra)
+        assert got == want, extra
+        assert st.get("prefix_hits", 0) == 0
+    with pytest.raises(SystemExit, match="mamba2-780m-smoke: chunked prefill over SSM state "
+                                         ".*chunk_size 16 must be a multiple of ssm_chunk 32"):
+        cli.main(plain + ["--paged", "--chunk-size", "16"])

@@ -268,7 +268,9 @@ def test_float32_stack_logits_match_reference(f32):
 def test_bf16_model_prefill_and_decode_match_reference(bf16):
     """``Model.prefill`` / ``decode_step`` of the reduced bf16 model: the
     cache layout, logits to the bf16 rule, greedy tokens where the margin
-    allows; the paged forwards refuse the SSM stack."""
+    allows; the paged forwards (the prompt in pieces of ``ssm_chunk``
+    through ``prefill_chunk_paged``, then ``decode_step_paged``) give the
+    contiguous forwards' logits bit for bit."""
     ref_model, rp, model, params = bf16
     cfg = model.cfg
     rng = np.random.default_rng(7)
@@ -297,9 +299,21 @@ def test_bf16_model_prefill_and_decode_match_reference(bf16):
         pl, pc = model.decode_step(params, nxt, pc)
     assert n_cmp >= n_tok // 2
     np.testing.assert_array_equal(pc["lengths"].numpy(), np.asarray(rc["lengths"]))
-    for call in (lambda: model.init_paged_cache(3, 64, block_size=16, num_blocks=12),
-                 lambda: model.decode_step_paged(params, None, {}),
-                 lambda: model.prefill_chunk_paged(params, None, {}, None, None),
-                 lambda: model.verify_chunk_paged(params, None, {}, None, None)):
-        with pytest.raises(NotImplementedError, match="Queue A 5"):
-            call()
+    cl, cc = model.prefill(params, {"tokens": torch.from_numpy(toks)})
+    paged = model.init_paged_cache(3, 64, block_size=16, num_blocks=12)
+    Q = cfg.ssm_chunk
+    for start in range(0, S_PROMPT, Q):
+        n = min(Q, S_PROMPT - start)
+        piece = torch.zeros((3, Q), dtype=torch.int32)
+        piece[:, :n] = torch.from_numpy(toks[:, start:start + n])
+        ql, paged = model.prefill_chunk_paged(params, piece, paged, torch.full((3,), start),
+                                              torch.full((3,), n))
+    assert torch.equal(ql, cl) and paged["lengths"].tolist() == [S_PROMPT] * 3
+    paged["slot_active"][:] = True      # what admission arms: every slot decodes
+    for _ in range(3):
+        nxt = cl.float().argmax(-1).to(torch.int32)[:, None]
+        cl, cc = model.decode_step(params, nxt, cc)
+        ql, paged = model.decode_step_paged(params, nxt, paged)
+        assert torch.equal(ql, cl)
+    for k, v in cc["stack"]["L0"].items():
+        assert torch.equal(paged["stack"]["L0"][k], v), k

@@ -1,8 +1,8 @@
 """Quantize and serve of the Mamba-2 (SSM) family vs the JAX reference on the
 CPU: DAQ quantize of an SSM tree, then the contiguous engine's per-length
 prefill groups, greedy tokens against the reference engine and the port's
-host loop, the dense family's one padded call, and the engine modes an SSM
-model refuses.  Inputs are numpy draws from fixed seeds, carried to the
+host loop, the dense family's one padded call, and the paged engine modes
+(the contiguous engine's tokens, or the reference's refusals).  Inputs are numpy draws from fixed seeds, carried to the
 port by ``params_from_jax``.
 
 Tolerances.  ``quantize()`` of a float32 SSM tree whose ``in_dt`` is quantized and
@@ -146,10 +146,31 @@ def test_dense_admission_still_pads_into_one_call():
                                 dict(paged=True, n_spec=2), dict(chunk_size=16)],
                          ids=["paged", "chunked", "prefix", "spec", "chunk-alone"])
 def test_ssm_refuses_the_paged_engines(ssm, kw):
-    _, _, model, params = ssm
+    """Each engine mode serves the SSM stack with the contiguous engine's
+    tokens, or refuses with the reference engine's message the settings its
+    rules refuse: a ``chunk_size`` off the ``ssm_chunk`` grid (16; the
+    chunked case then serves at 32) and a chunk size without the paged
+    engine."""
+    ref_model, rp, model, params = ssm
+    prompts = [_prompt(s, L) for s, L in PROMPTS]
     extra = {"draft_params": params} if kw.get("n_spec") else {}
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        Engine(model, params, slots=2, cache_len=64, k_steps=4, **kw, **extra)
+    base = dict(slots=2, cache_len=64, k_steps=4)
+    contiguous = Engine(model, params, **base).serve(prompts, gen_tokens=4)
+    if kw.get("chunk_size") == 16:
+        msgs = []
+        for eng, m, p in ((RefEngine, ref_model, rp), (Engine, model, params)):
+            with pytest.raises(ValueError, match="need paged|multiple of ssm_chunk") as e:
+                eng(m, p, **base, **kw)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]
+        if not kw.get("paged"):
+            return
+        kw = {**kw, "chunk_size": model.cfg.ssm_chunk}
+    outs, stats = Engine(model, params, check_invariants=True, **base, **kw, **extra).serve(
+        prompts, gen_tokens=4, return_stats=True)
+    assert outs == contiguous
+    if kw.get("prefix_cache"):
+        assert stats["prefix_hits"] == 0 and stats["prefill_tokens"] == sum(LENS)
 
 
 # ---------------------------------------------------------------------------
