@@ -72,7 +72,7 @@ Phases:
      requests served with telemetry off and on agree in tokens, syncs,
      dispatches, admissions and launches;
   7d. self-speculative decoding (``spec_phase``, on the first
-     ``SPEC_LAYERS`` = 10 layers of phase 5's model): phase 5's bf16 tree
+     ``SPEC_LAYERS`` = 6 layers of phase 5's model): phase 5's bf16 tree
      verifying, ``n_spec=4``: phase 6's requests without speculation (the
      baseline), with the DAQ draft (dynamic depth, then pinned) and with
      an AbsMax draft; phase 7c's requests composed with chunked prefill
@@ -137,7 +137,16 @@ Phases:
      decode route at [3072,1536] timed again (``repeat_timing``); tok/s,
      prefill seconds and one
      decode step broken down; a small bf16 SSM model's card run against
-     its CPU run (``ssm_small_agreement``);
+     its CPU run (``ssm_small_agreement``); then the paged engines
+     (``family_paged_phase``, 16 tokens a request): paged == contiguous
+     token for token, chunked on the SSD grid (256 rows a slot a piece;
+     first tokens equal to the one-shot serve's), prefix-cached cold and
+     warm with zero hits (an SSM state shares no block; == the chunked
+     serve token for token), the bf16 tree paged and verifying the DAQ
+     draft (two-pass rounds: acceptance rate, first tokens equal), each
+     serve's launches by formula (5 x 48 products a layer step) and
+     conservation asserted; one speculative dispatch under the sync debug
+     mode; a paged decode step and a speculative round broken down;
   7k. the MoE family (``moe_phase``, after 7j): DeepSeek-V3 at full width
      (d_model 7168, 256 experts of 2,048 top-8 and a shared one, vocab
      129,280) cut to its 3 dense-prefix layers and 1 MoE layer, seeded
@@ -157,7 +166,14 @@ Phases:
      timed; a decode step and a prefill broken down; a small float32 MoE
      model on fp32 activations, card against CPU: routing equal, logits
      within 1e-3 of their scale, greedy tokens equal
-     (``moe_small_agreement``);
+     (``moe_small_agreement``); and the paged engines as 7j's: paged ==
+     contiguous at factor 1.25, then at the least dropless factor 32
+     (n_experts / top_k) one-shot paged, chunked (32 rows a slot a piece,
+     its full-capacity expert queues 7.5 GB; first tokens equal to the
+     one-shot's), prefix-cached cold then warm (hits, fewer prompt
+     tokens, warm == cold), the bf16 tree (made again from its seed)
+     paged and verifying the DAQ draft; launches (7 x 4 a layer step) and
+     peak GB of each;
   7l. quant block 64 (``block64_phase``, after 7e): phase 4's weights
      DAQ-quantized at block 64 and served phase 6's 8 requests through
      ``Engine(slots=8, k_steps=8)``: the sweep's and the quantizer's
@@ -209,11 +225,12 @@ PAGED_REQUESTS, PAGED_CACHE_LEN, BLOCK, PRESSURE_BLOCKS = 16, 560, 16, 120
 # so each chunk product has SLOTS * 64 = 512 rows (the wgmma route)
 SYSTEM_PROMPT, SUFFIX_MIN, SUFFIX_MAX, CHUNK = 128, 16, 368, 64
 # the speculative phase: up to 4 draft tokens a round, so a round verifies
-# SLOTS * 5 = 40 rows of the bf16 tree; it runs the first 10 of the main
+# SLOTS * 5 = 40 rows of the bf16 tree; it runs the first 6 of the main
 # path's layers (40 until phase 7j joined the script: 7d took 192-265 s
-# of host-bound serving at 40, and the script 1,029 s of its 1,200)
+# of host-bound serving at 40, and the script 1,029 s of its 1,200; 10
+# until the paged serves of 7j and 7k added ~60 s to a 698 s script)
 N_SPEC = 4
-SPEC_LAYERS = 10
+SPEC_LAYERS = 6
 # the methods phase's calibration language: 4,096 tokens (its [V, V] float32
 # bigram table is 67 MB; at GLM-4-9B's vocabulary it would be 91.9 GB)
 CALIB_VOCAB = 4096
@@ -238,6 +255,17 @@ SSM_LENS = (300, 300, 520, 520, 700, 700, 1000, 1000)
 MOE_LAYERS = 4
 MOE_LENS = (128, 128, 256, 256, 384, 384, 512, 512)
 MOE_GEN = 32
+# both families on the paged engines (``family_paged_phase``): each phase's
+# 8 requests, 16 tokens each (a paged serve must give the first 16 of the
+# contiguous serve's), blocks of 16.  Mamba2-780M's chunk pieces lie on its
+# SSD grid (256 rows a slot: 2,048 a piece); DeepSeek-V3's are 32 rows a
+# slot at the least dropless capacity factor, n_experts / top_k = 32: a
+# chunk piece routes at full capacity, g * top_k rows an expert, so its
+# expert input is 256 x 2,048 x 7,168 bf16 = 7.5 GB (the output as much
+# again) at 8 x 32 rows, 15 GB at 8 x 64
+FAMILY_GEN = 16
+SSM_CHUNK = 256
+MOE_CHUNK = 32
 
 
 def log(*a):
@@ -1334,16 +1362,19 @@ def main_path(torch, args, records: dict):
     return model, post, qparams, torch.stack(requests), outputs, base_state
 
 
-def fp8_serve_launches(stats: dict, n_layers: int) -> dict:
-    """The fp8 routes' launches a bf16 serve makes: seven quantized products
-    per layer, prefill rows (M >= 16) on the wgmma route, decode rows and
-    each LM head (last token, M = slots) on the decode route, none on the
-    CUDA-core route.  A DeepSeek-V3 layer's seven are its attention's four
-    and its dense MLP's or shared expert's three: the router is fp32 and
-    never quantized, and the expert stacks are dequantized and multiplied
-    by ``torch.matmul``."""
-    return {"fp8_matmul_wgmma": 7 * n_layers * stats["prefill_calls"],
-            "fp8_matmul_decode": (7 * n_layers + 1) * stats["decode_steps"]
+def fp8_serve_launches(stats: dict, n_layers: int, per_layer: int = 7) -> dict:
+    """The fp8 routes' launches a bf16 serve makes: ``per_layer`` quantized
+    products a layer, prefill rows (M >= 16) on the wgmma route, decode rows
+    and each LM head (last token, M = slots) on the decode route, none on
+    the CUDA-core route.  A dense or DeepSeek-V3 layer has seven: its
+    attention's four and its MLP's or shared expert's three (the MoE
+    router is fp32 and never quantized, and the expert stacks are
+    dequantized and multiplied by ``torch.matmul``); a Mamba-2 layer five
+    (``in_z``, ``in_x``, ``in_bc``, ``in_dt``, ``out_proj``; the ragged
+    ``in_dt`` [D, heads] and the LM head [D, 50280] through their
+    zero-padded block grids)."""
+    return {"fp8_matmul_wgmma": per_layer * n_layers * stats["prefill_calls"],
+            "fp8_matmul_decode": (per_layer * n_layers + 1) * stats["decode_steps"]
             + stats["prefill_calls"],
             "fp8_matmul": 0}
 
@@ -1352,9 +1383,10 @@ def fp8_serve_launches(stats: dict, n_layers: int) -> dict:
 # The paged phase: the paged engine at full width against the contiguous one
 # ---------------------------------------------------------------------------
 
-def counted_serve(torch, engine, requests):
-    """``engine.serve`` with every kernel count zeroed just before and read
-    just after: (outputs, stats, launches, seconds).  An engine with
+def counted_serve(torch, engine, requests, gen: int = GEN):
+    """``engine.serve`` (``gen`` tokens a request) with every kernel count
+    zeroed just before and read just after: (outputs, stats, launches,
+    seconds).  An engine with
     telemetry on (``telemetry_on``) gets a fresh registry and tracer for the
     serve, checked after it (``check_telemetry``)."""
     from repro_torch.kernels._lib import KERNELS
@@ -1363,7 +1395,7 @@ def counted_serve(torch, engine, requests):
     for k in KERNELS:
         k.launches = 0
     t0 = time.perf_counter()
-    outputs, stats = engine.serve(requests, gen_tokens=GEN, return_stats=True)
+    outputs, stats = engine.serve(requests, gen_tokens=gen, return_stats=True)
     if engine.model.device.type == "cuda":
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
@@ -1652,15 +1684,15 @@ def paged_phase(torch, args, model, qparams) -> dict:
 # The prefix phase: prefix caching and chunked prefill at full width
 # ---------------------------------------------------------------------------
 
-def fp8_chunked_launches(stats: dict, n_layers: int) -> dict:
+def fp8_chunked_launches(stats: dict, n_layers: int, per_layer: int = 7) -> dict:
     """The fp8 routes' launches of a chunked serve: every dispatch step's
     decode sub-step as a decode step, and each step of a chunked dispatch
-    one chunk sub-step whose seven products a layer see SLOTS * CHUNK rows
-    (the wgmma route) and whose LM head sees one row a slot (the decode
-    route); no one-shot prefill."""
+    one chunk sub-step whose ``per_layer`` products a layer see SLOTS x
+    chunk rows (the wgmma route) and whose LM head sees one row a slot (the
+    decode route); no one-shot prefill."""
     pieces = stats["chunk_dispatches"] * K_STEPS
-    return {"fp8_matmul_wgmma": 7 * n_layers * pieces,
-            "fp8_matmul_decode": (7 * n_layers + 1) * stats["decode_steps"] + pieces,
+    return {"fp8_matmul_wgmma": per_layer * n_layers * pieces,
+            "fp8_matmul_decode": (per_layer * n_layers + 1) * stats["decode_steps"] + pieces,
             "fp8_matmul": 0}
 
 
@@ -1826,13 +1858,15 @@ def prefix_phase(torch, args, model, qparams) -> dict:
 # The speculative phase: a DAQ-fp8 draft and the bf16 verifier at full width
 # ---------------------------------------------------------------------------
 
-def fp8_spec_launches(stats: dict, n_layers: int) -> dict:
+def fp8_spec_launches(stats: dict, n_layers: int, per_layer: int = 7) -> dict:
     """The fp8 routes' launches of a speculative serve with a bf16 verifier:
     each round's N_SPEC draft steps run the quantized tree at one row a slot
-    (the decode route: seven products a layer and the LM head); the
-    verify, the prefills and the chunk pieces are bf16 products."""
+    (the decode route: ``per_layer`` products a layer and the LM head); the
+    verify (both passes of a two-pass round), the prefills and the chunk
+    pieces are bf16 products."""
     return {"fp8_matmul_wgmma": 0,
-            "fp8_matmul_decode": (7 * n_layers + 1) * N_SPEC * K_STEPS * stats["dispatches"],
+            "fp8_matmul_decode": (per_layer * n_layers + 1) * N_SPEC * K_STEPS
+            * stats["dispatches"],
             "fp8_matmul": 0}
 
 
@@ -2889,20 +2923,6 @@ def sync(torch, device) -> None:
         torch.cuda.synchronize()
 
 
-def ssm_serve_launches(stats: dict, n_layers: int) -> dict:
-    """The fp8 routes' launches a bf16 serve of a Mamba-2 tree makes: five
-    block-128 products a layer (``in_z``, ``in_x``, ``in_bc``, ``in_dt``,
-    ``out_proj``; the ragged ``in_dt`` [D, heads] through its zero-padded
-    block grid), prefill rows on the wgmma route and decode rows on the
-    decode route, and the LM head [D, 50280] (its grid 50,304 wide) on the
-    decode route once a decode step and once a prefill call (one row per
-    request, fewer than ``TC_MIN_ROWS``); nothing on the CUDA-core route."""
-    return {"fp8_matmul_wgmma": 5 * n_layers * stats["prefill_calls"],
-            "fp8_matmul_decode": (5 * n_layers + 1) * stats["decode_steps"]
-            + stats["prefill_calls"],
-            "fp8_matmul": 0}
-
-
 def ragged_product_checks(torch, qparams, g) -> None:
     """The fused matmul on the two ragged quantized leaves of the Mamba-2
     tree through their zero-padded block grids: ``in_dt`` of layer 0
@@ -3067,7 +3087,7 @@ def ssm_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
     cuda = torch.device(device).type == "cuda"
     cfg = get_arch("mamba2-780m")
     if SLOTS >= TC_MIN_ROWS:
-        raise AssertionError("ssm_serve_launches counts a prefill's LM head on the decode "
+        raise AssertionError("fp8_serve_launches counts a prefill's LM head on the decode "
                              f"route: SLOTS must stay below {TC_MIN_ROWS}")
     log(f"ssm phase: {cfg.name} d_model={cfg.d_model} d_inner={cfg.resolved_d_inner} "
         f"heads={cfg.n_ssm_heads}x{cfg.ssm_head_dim} state={cfg.ssm_state} "
@@ -3122,7 +3142,7 @@ def ssm_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
                              f"({n} leaf-layers), expected {leaves}")
     passes = len(sweep_plan(1 + qcfg.n_coarse)) + len(sweep_plan(1 + qcfg.n_fine))
     want = {"scale_search": passes * n, "fp8_quant": n,
-            **ssm_serve_launches(stats, cfg.n_layers)}
+            **fp8_serve_launches(stats, cfg.n_layers, per_layer=5)}
     if stats["prefill_calls"] != len(set(SSM_LENS)):
         raise AssertionError(f"ssm phase: {stats['prefill_calls']} prefill calls, expected "
                              f"one per prompt length ({len(set(SSM_LENS))})")
@@ -3141,6 +3161,8 @@ def ssm_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
         if name in records:
             records[name]["launches"] += k
     log(f"ssm phase: launches asserted ({json.dumps(want)}); first row {outputs[0][:12]}...")
+    family_paged_phase(torch, records, "ssm phase", model, qparams, lambda: post, requests,
+                       outputs, engine.cfg.cache_len, per_layer=5, chunk=SSM_CHUNK)
     if not cuda:
         return
 
@@ -3473,10 +3495,23 @@ def moe_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
         if name in records:
             records[name]["launches"] += k
     log(f"moe phase: launches asserted ({json.dumps(want)}); first row {outputs[0][:12]}...")
+    cache_len = engine.cfg.cache_len
+    del engine
+    # the quantize took the bf16 tree apart: the speculative serve's
+    # verifier is made again from its seed (the same weights), after the
+    # fp8 serves; the rest runs at the least dropless capacity factor
+    dropless = build_model(dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k),
+                           device=device)
+    family_paged_phase(torch, records, "moe phase", model, qparams,
+                       lambda: model.init(torch.Generator(device=model.device)
+                                          .manual_seed(seed + 12)),
+                       requests, outputs, cache_len, per_layer=7, chunk=MOE_CHUNK,
+                       dropless=dropless)
+    if cuda:
+        torch.cuda.empty_cache()
     if not cuda:
         return
 
-    del engine
     stacked_dequantize_check(torch, qparams["stack"]["L0"]["moe"]["w_gate"])
     torch.cuda.empty_cache()
     same = torch.stack([r[:PROMPT] for r in requests])
@@ -3487,6 +3522,197 @@ def moe_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
     torch.cuda.empty_cache()
     for name, n in moe_small_agreement(torch, seed).items():
         records[name]["launches"] += n
+
+
+def family_paged_phase(torch, records: dict, label: str, model, qparams, make_post, requests,
+                       contiguous: list, cache_len: int, per_layer: int, chunk: int,
+                       dropless=None) -> None:
+    """A family's paged engines (phases 7j, 7k): ``requests`` through
+
+    * (1) the paged engine (``check_invariants=True``, as every serve here),
+      ``qparams`` at the model's own config: the contiguous serve's first
+      ``FAMILY_GEN`` tokens (``contiguous``), token for token;
+    * (2) for MoE, the one-shot paged engine at the least dropless capacity
+      (``dropless``, the model the rest runs);
+    * (3) the chunked engine (``chunk`` rows a slot a piece), its first
+      chunked dispatch under ``set_sync_debug_mode("error")``: first
+      tokens equal to the one-shot serve's ((1), or (2) for MoE);
+    * (4) the prefix-cached engine, cold then warm: MoE shares blocks (warm
+      hits > 0, fewer prompt tokens prefilled, warm == cold token for
+      token); an SSM stack's state is recurrent, so it shares none (zero
+      hits both times, every prompt token prefilled, each serve == the
+      chunked one token for token: the same pieces in the same order);
+    * (5) the bf16 tree (``make_post()``, the tree ``qparams`` quantizes)
+      on the paged engine, then verifying a DAQ draft (``qparams``) with
+      ``n_spec=N_SPEC``: first tokens equal (the same bf16 prefill), the
+      acceptance rate printed.
+
+    Every engine takes the contiguous serve's ``cache_len``, so a paged
+    decode step's softmax spans as many rows as the contiguous one's (on
+    the card a longer or shorter table changes the reduction's rounding:
+    7k's first call read 93 of 128 tokens equal at 528 rows against 544).
+    Every serve: lengths and token ranges, the counters' block
+    conservation (``check_invariants`` after every admission and dispatch;
+    held before + popped - released == held by the index after), drafted
+    == accepted + rejected, and the fp8 routes' launches by formula
+    (``per_layer`` products a layer: ``fp8_serve_launches``,
+    ``fp8_chunked_launches``, ``fp8_spec_launches``; none of the bf16
+    serve), added to ``records``.  The agreement of (3) with (1) or (2)
+    and of (5) with its bf16 serve is printed: on the card a chunk piece's
+    and a verify's products see other row counts than a one-shot prefill's
+    and a decode step's (PERF.md, decision b).  On the card one speculative
+    dispatch runs under ``set_sync_debug_mode("error")`` and one paged
+    decode step and one speculative round are broken down."""
+    from repro_torch.engine import Engine
+    cuda = model.device.type == "cuda"
+    gen, L = FAMILY_GEN, model.cfg.n_layers
+    kw = dict(slots=SLOTS, cache_len=cache_len, k_steps=K_STEPS, paged=True, block_size=BLOCK,
+              check_invariants=True)
+    first16 = [o[:gen] for o in contiguous]
+    t_phase = time.perf_counter()
+
+    def serve(name, engine):
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        held0 = len(engine._hold_blocks)
+        outputs, stats, launches, secs = counted_serve(torch, engine, requests, gen)
+        ctr = stats["counters"]
+        peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
+        line = (f"{label}, {name}: {secs:.2f} s, {len(requests) * gen / secs:.1f} tok/s end to "
+                f"end; {stats['prefill_calls']} admissions, {stats['dispatches']} dispatches "
+                f"({stats.get('chunk_dispatches', 0)} chunked), {stats['prefill_tokens']} "
+                f"prompt tokens prefilled, {stats.get('prefix_hits', 0)} prefix-hit tokens; "
+                f"{ctr['tokens']} tokens through the dispatches in {stats['decode_s']:.3f} s; "
+                f"peak {peak:.2f} GB")
+        if engine.cfg.n_spec:
+            line += (f"; acceptance {stats['draft_accepted']} of {stats['draft_tokens']} "
+                     f"drafted ({stats['draft_accepted'] / max(stats['draft_tokens'], 1):.4f}), "
+                     f"final depth {stats['spec_depth']}")
+        log(f"{line}; counters {json.dumps(ctr)}; launches {json.dumps(launches)}")
+        for out in outputs:
+            if len(out) != gen or not all(0 <= t < model.cfg.vocab_size for t in out):
+                raise AssertionError(f"{label}, {name}: bad output row {out[:8]}... "
+                                     f"({len(out)} tokens)")
+        if held0 + ctr["blocks_popped"] - ctr["blocks_released"] != len(engine._hold_blocks):
+            raise AssertionError(f"{label}, {name}: {held0} held before + popped "
+                                 f"{ctr['blocks_popped']} - released {ctr['blocks_released']} "
+                                 f"!= {len(engine._hold_blocks)} held by the index")
+        if ctr["drafted"] != ctr["accepted"] + ctr["rejected"] \
+                or (engine.cfg.n_spec and ctr["drafted"] <= 0):
+            raise AssertionError(f"{label}, {name}: drafted {ctr['drafted']} != accepted "
+                                 f"{ctr['accepted']} + rejected {ctr['rejected']}")
+        want = dict.fromkeys(launches, 0)
+        if engine.cfg.n_spec:
+            want.update(fp8_spec_launches(stats, L, per_layer))
+        elif engine.params is qparams:
+            want.update(fp8_chunked_launches(stats, L, per_layer) if engine.cfg.chunk_size
+                        else fp8_serve_launches(stats, L, per_layer))
+        if launches != want:
+            raise AssertionError(f"{label}, {name}: launches {launches}, expected {want}")
+        for k, n in launches.items():
+            if k in records:
+                records[k]["launches"] += n
+        return outputs, stats
+
+    paged_eng = Engine(model, qparams, **kw)
+    paged, _ = serve("(1) paged", paged_eng)
+    log(f"{label}: (1) paged vs the contiguous serve's first {gen} tokens: "
+        f"{agreement(paged, first16)}")
+    if paged != first16:
+        raise AssertionError(f"{label}: the paged serve's tokens differ from the contiguous "
+                             f"engine's")
+    m, ref = model, paged
+    if dropless is not None:
+        m = dropless
+        ref, _ = serve(f"(2) one-shot paged, capacity_factor {m.cfg.capacity_factor:g}",
+                       Engine(m, qparams, **kw))
+    chunked_eng = Engine(m, qparams, chunk_size=chunk, **kw)
+    ran = first_chunked_dispatch_under_error_mode(torch, chunked_eng) if cuda else [True]
+    chunked, cst = serve(f"(3) chunked, {chunk} rows a slot a piece", chunked_eng)
+    if not ran:
+        raise AssertionError(f"{label}: no chunked dispatch ran under the sync debug mode")
+    log(f"{label}: (3) chunked vs {'(2)' if dropless is not None else '(1)'}: "
+        f"{agreement(chunked, ref)}")
+    if [o[0] for o in chunked] != [o[0] for o in ref]:
+        raise AssertionError(f"{label}, (3): first tokens differ from the one-shot serve's")
+    pe = Engine(m, qparams, chunk_size=chunk, prefix_cache=True, **kw)
+    cold, cs = serve("(4) prefix-cached, cold", pe)
+    warm, ws = serve("(4) prefix-cached, warm", pe)
+    log(f"{label}: (4) warm vs cold: {agreement(warm, cold)}; prompt tokens prefilled "
+        f"{cs['prefill_tokens']} cold, {ws['prefill_tokens']} warm; prefix hits "
+        f"{cs['prefix_hits']} / {ws['prefix_hits']}")
+    for name, st in (("cold", cs), ("warm", ws)):
+        if st["counters"]["prefix_hit_tokens"] != st["prefix_hits"]:
+            raise AssertionError(f"{label}, (4) {name}: prefix-hit tokens "
+                                 f"{st['counters']['prefix_hit_tokens']} on the device, "
+                                 f"{st['prefix_hits']} on the host")
+    if pe._can_match:
+        if not (ws["prefix_hits"] > 0 and ws["prefill_tokens"] < cs["prefill_tokens"]):
+            raise AssertionError(f"{label}, (4): the warm serve hit no cached block")
+        if warm != cold:
+            raise AssertionError(f"{label}, (4): the warm serve's tokens differ from the cold "
+                                 f"one's")
+    else:
+        total = sum(int(r.shape[0]) for r in requests)
+        if cs["prefix_hits"] or ws["prefix_hits"] or pe._hold_blocks \
+                or cs["prefill_tokens"] != total or ws["prefill_tokens"] != total:
+            raise AssertionError(f"{label}, (4): an SSM stack shared a prompt block")
+        if cold != chunked or warm != chunked:
+            raise AssertionError(f"{label}, (4): the unshared prefix-cached serves' tokens "
+                                 f"differ from the chunked serve's")
+    del paged_eng, chunked_eng, pe
+    post = make_post()
+    base_eng = Engine(m, post, **kw)
+    base, _ = serve("(5) bf16 paged", base_eng)
+    spec_eng = Engine(m, post, draft_params=qparams, n_spec=N_SPEC, **kw)
+    spec, ss = serve(f"(5) speculative, n_spec {N_SPEC}, DAQ-fp8 draft, bf16 verifier", spec_eng)
+    log(f"{label}: (5) speculative vs bf16 paged: {agreement(spec, base)}; acceptance rate "
+        f"{ss['draft_accepted'] / max(ss['draft_tokens'], 1):.4f}")
+    if [o[0] for o in spec] != [o[0] for o in base]:
+        raise AssertionError(f"{label}, (5): first tokens differ from the bf16 serve's")
+    log(f"{label}: paged engines took {time.perf_counter() - t_phase:.1f} s")
+    del base_eng
+    if not cuda:
+        return
+    spec_dispatch_under_error_mode(torch, spec_eng, requests)
+    log(f'{label}: one speculative dispatch ran under set_sync_debug_mode("error")')
+    family_breakdowns(torch, label, Engine(model, qparams, **kw), spec_eng, requests)
+
+
+def family_breakdowns(torch, label: str, paged_eng, spec_eng, requests) -> None:
+    """One paged decode step (``decode_step_paged`` of the fp8 tree,
+    ``BREAKDOWN_STEPS`` of them) and one speculative round (a one-round
+    dispatch of ``spec_eng``, its draft and verify) at each engine's first
+    admission of the 8 requests: host ms, device busy ms, launches, idle
+    share."""
+    from repro_torch.engine.scheduler import make_decode_dispatch
+    model = paged_eng.model
+    cache, state, _ = admitted(torch, paged_eng, requests)
+
+    def decode():
+        nonlocal cache
+        for _ in range(BREAKDOWN_STEPS):
+            _, cache = model.decode_step_paged(paged_eng.params, state["cur"], cache)
+        torch.cuda.synchronize()
+
+    device_breakdown(torch, f"{label} paged decode ({BREAKDOWN_STEPS} steps of {SLOTS} slots, "
+                     f"fp8 tree)", decode, BREAKDOWN_STEPS, "step")
+    del cache, state
+    cache0, state0, g = admitted(torch, spec_eng, requests)
+    one_round = make_decode_dispatch(spec_eng.model, spec_eng.cfg.sampling, 1, paged=True,
+                                     n_spec=N_SPEC)
+    depth = torch.full((), N_SPEC, dtype=torch.int32, device=model.device)
+
+    def round_():
+        one_round(spec_eng.params, spec_eng.draft_params, clone_tree(state0),
+                  clone_tree(cache0), depth, g)
+        torch.cuda.synchronize()
+
+    device_breakdown(torch, f"{label} speculative round (n_spec {N_SPEC}, DAQ draft, bf16 "
+                     f"verify, {SLOTS} slots)", round_, 1, "round")
+    del cache0, state0
+    torch.cuda.empty_cache()
 
 
 def clone_tree(tree):
@@ -3742,6 +3968,7 @@ def main() -> int:
                     help="model depth (default: GLM-4-9B's 40)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_script = time.perf_counter()
 
     import torch
     if not torch.cuda.is_available():
@@ -3854,6 +4081,7 @@ def main() -> int:
                                        "bound_by", "library_ms")}}
                for name, rec in records.items()]
     log(json.dumps({"kernels": kernels}))
+    log(f"chip_smoke: the whole script took {time.perf_counter() - t_script:.1f} s")
     log(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
