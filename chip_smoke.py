@@ -60,7 +60,8 @@ Phases:
      dispatches, prefill calls and launches equal the contiguous run's
      (telemetry off), and a drained paged dispatch (dispatch, transfer,
      trace) synchronizes at the same one site with telemetry on and off;
-  7c. prefix caching and chunked prefill (``prefix_phase``): 18 requests
+  7c. prefix caching and chunked prefill (``prefix_phase``, on the first
+     ``PREFIX_LAYERS`` = 20 layers of phase 5's model): 18 requests
      sharing a 128-token system prompt through the one-shot paged engine,
      a chunked one (``chunk_size=64``) and a chunked, prefix-cached one
      served cold then warm; conservation after every admission and
@@ -224,6 +225,10 @@ PAGED_REQUESTS, PAGED_CACHE_LEN, BLOCK, PRESSURE_BLOCKS = 16, 560, 16, 120
 # partial-tail hit, so a copy-on-write decode write); chunks of 64 tokens,
 # so each chunk product has SLOTS * 64 = 512 rows (the wgmma route)
 SYSTEM_PROMPT, SUFFIX_MIN, SUFFIX_MAX, CHUNK = 128, 16, 368, 64
+# it runs the first 20 of the main path's layers since the paged serves of
+# 7j and 7k joined the script (40 before: 7c took 164 s of host-bound
+# serving there, and the script 894 s of its 1,200 on a slow host)
+PREFIX_LAYERS = 20
 # the speculative phase: up to 4 draft tokens a round, so a round verifies
 # SLOTS * 5 = 40 rows of the bf16 tree; it runs the first 6 of the main
 # path's layers (40 until phase 7j joined the script: 7d took 192-265 s
@@ -4019,8 +4024,9 @@ def main() -> int:
     phase = paged_phase(torch, args, model, qparams)
     log(f"paged phase passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    prefix_phase(torch, args, model, qparams)
-    log(f"prefix phase passed in {time.perf_counter() - t0:.1f} s")
+    prefix_phase(torch, args, *first_layers(model, min(PREFIX_LAYERS, args.layers), qparams))
+    log(f"prefix phase ({min(PREFIX_LAYERS, args.layers)} layers) passed in "
+        f"{time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     spec = spec_phase(torch, args, *first_layers(model, min(SPEC_LAYERS, args.layers), post,
                                                  qparams), prompts)
