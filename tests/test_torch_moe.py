@@ -554,16 +554,31 @@ def test_moe_engine_matches_reference_engine_and_host_loop(bf16):
     assert outs == serve_host_loop(model, params, prompts, batch=4, gen_tokens=6, cache_len=64)
 
 
+@pytest.fixture(scope="module")
+def dropless(bf16):
+    """The bf16 model at the least dropless capacity factor (``n_experts /
+    top_k``; the weights do not depend on it) and its contiguous engine's
+    tokens for the four prompts."""
+    model, params = bf16[2], bf16[3]
+    cfg = model.cfg
+    m = build_model(dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k),
+                    device="cpu")
+    prompts = [_prompt(s, L) for s, L in PROMPTS]
+    return m, Engine(m, params, slots=2, cache_len=64, k_steps=4).serve(prompts,
+                                                                        gen_tokens=4)
+
+
 @pytest.mark.parametrize("kw", [dict(paged=True), dict(paged=True, chunk_size=16),
                                 dict(paged=True, prefix_cache=True),
                                 dict(paged=True, n_spec=2)],
                          ids=["paged", "chunked", "prefix", "spec"])
-def test_moe_refuses_the_paged_engines(bf16, kw):
-    """The paged, chunked and prefix-cached engines serve the MoE stack at
-    its config's capacity (``paged``: the contiguous engine's tokens); at
-    the dropless capacity (``capacity_factor = n_experts / top_k``) every
-    mode gives the contiguous engine's tokens, and speculation is refused
-    below it with the reference engine's message."""
+def test_moe_refuses_the_paged_engines(bf16, dropless, kw):
+    """The paged, chunked and prefix-cached engines take the MoE stack at
+    its config's capacity (paged == contiguous there is
+    ``test_bf16_model_prefill_and_decode_match_reference``'s); at the
+    dropless capacity (``capacity_factor = n_experts / top_k``) every mode
+    gives the contiguous engine's tokens, and speculation is refused below
+    it with the reference engine's message."""
     ref_model, rp, model, params = bf16
     extra = {"draft_params": params} if kw.get("n_spec") else {}
     prompts = [_prompt(s, L) for s, L in PROMPTS]
@@ -576,18 +591,9 @@ def test_moe_refuses_the_paged_engines(bf16, kw):
             msgs.append(str(e.value))
         assert msgs[0] == msgs[1]
     else:
-        out = Engine(model, params, check_invariants=True, **base, **kw).serve(
-            prompts, gen_tokens=4)
-        assert len(out) == 4 and all(len(o) == 4 for o in out)
-        if kw == dict(paged=True):
-            assert out == Engine(model, params, slots=2, cache_len=64, k_steps=4).serve(
-                prompts, gen_tokens=4)
-    cfg = model.cfg
-    dropless = build_model(dataclasses.replace(
-        cfg, capacity_factor=cfg.n_experts / cfg.top_k), device="cpu")
-    contiguous = Engine(dropless, params, slots=2, cache_len=64, k_steps=4).serve(
-        prompts, gen_tokens=4)
-    assert Engine(dropless, params, check_invariants=True, **base, **kw, **extra).serve(
+        assert Engine(model, params, **base, **kw).cfg.paged
+    m, contiguous = dropless
+    assert Engine(m, params, check_invariants=True, **base, **kw, **extra).serve(
         prompts, gen_tokens=4) == contiguous
 
 

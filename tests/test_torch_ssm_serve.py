@@ -141,11 +141,19 @@ def test_dense_admission_still_pads_into_one_call():
     assert stats["prefill_calls"] == 1
 
 
+@pytest.fixture(scope="module")
+def contiguous(ssm):
+    """The contiguous engine's tokens for ``PROMPTS``, 4 each."""
+    model, params = ssm[2], ssm[3]
+    return Engine(model, params, slots=2, cache_len=64, k_steps=4).serve(
+        [_prompt(s, L) for s, L in PROMPTS], gen_tokens=4)
+
+
 @pytest.mark.parametrize("kw", [dict(paged=True), dict(paged=True, chunk_size=16),
                                 dict(paged=True, prefix_cache=True),
                                 dict(paged=True, n_spec=2), dict(chunk_size=16)],
                          ids=["paged", "chunked", "prefix", "spec", "chunk-alone"])
-def test_ssm_refuses_the_paged_engines(ssm, kw):
+def test_ssm_refuses_the_paged_engines(ssm, contiguous, kw):
     """Each engine mode serves the SSM stack with the contiguous engine's
     tokens, or refuses with the reference engine's message the settings its
     rules refuse: a ``chunk_size`` off the ``ssm_chunk`` grid (16; the
@@ -155,7 +163,6 @@ def test_ssm_refuses_the_paged_engines(ssm, kw):
     prompts = [_prompt(s, L) for s, L in PROMPTS]
     extra = {"draft_params": params} if kw.get("n_spec") else {}
     base = dict(slots=2, cache_len=64, k_steps=4)
-    contiguous = Engine(model, params, **base).serve(prompts, gen_tokens=4)
     if kw.get("chunk_size") == 16:
         msgs = []
         for eng, m, p in ((RefEngine, ref_model, rp), (Engine, model, params)):
