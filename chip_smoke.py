@@ -226,8 +226,9 @@ PAGED_REQUESTS, PAGED_CACHE_LEN, BLOCK, PRESSURE_BLOCKS = 16, 560, 16, 120
 # so each chunk product has SLOTS * 64 = 512 rows (the wgmma route)
 SYSTEM_PROMPT, SUFFIX_MIN, SUFFIX_MAX, CHUNK = 128, 16, 368, 64
 # it runs the first 20 of the main path's layers since the paged serves of
-# 7j and 7k joined the script (40 before: 7c took 164 s of host-bound
-# serving there, and the script 894 s of its 1,200 on a slow host)
+# 7j and 7k joined the script (40 before: on an H100 machine with a slow
+# host 7c took 164 s of host-bound serving, and the script 894 s of its
+# 1,200)
 PREFIX_LAYERS = 20
 # the speculative phase: up to 4 draft tokens a round, so a round verifies
 # SLOTS * 5 = 40 rows of the bf16 tree; it runs the first 6 of the main
@@ -3555,7 +3556,8 @@ def family_paged_phase(torch, records: dict, label: str, model, qparams, make_po
     Every engine takes the contiguous serve's ``cache_len``, so a paged
     decode step's softmax spans as many rows as the contiguous one's (on
     the card a longer or shorter table changes the reduction's rounding:
-    7k's first call read 93 of 128 tokens equal at 528 rows against 544).
+    on an H100, 7k's paged tokens at 528 rows against the contiguous
+    serve's 544 were 93 of 128 equal).
     Every serve: lengths and token ranges, the counters' block
     conservation (``check_invariants`` after every admission and dispatch;
     held before + popped - released == held by the index after), drafted
