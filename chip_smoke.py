@@ -175,6 +175,26 @@ Phases:
      tokens, warm == cold), the bf16 tree (made again from its seed)
      paged and verifying the DAQ draft; launches (7 x 4 a layer step) and
      peak GB of each;
+  7m. sliding-window attention (``swa_phase``, after 7k): Mixtral 8x22B at
+     full width (d_model 6144, 48/8 heads of 128, 8 experts of 16,384
+     top-2, window 4,096, vocab 32,768) cut to 4 of its 56 layers, seeded
+     bf16 weights quantized in two subtrees, then 8 greedy requests of
+     4,072 / 4,096 / 4,200 / 4,600 tokens, 32 each, through
+     ``Engine(slots=8, k_steps=8)`` with ring caches of 4,096 rows (the
+     cache's bytes asserted): the ring wraps mid-decode, at the first
+     decode write and in the prefill; 4 prefill calls, the wgmma route 4 x
+     4 launches a prefill call, the decode route 4 x 4 + 1 a decode step
+     and 1 a prefill call (the attention products; the router is fp32 and
+     the expert stacks are dequantized); a decode step after the ring
+     wrapped against a one-shot prefill of the whole sequence
+     (``ring_agreement``, 2e-2 of the logit scale where routing agrees);
+     the paged engines as 7k's at the least dropless factor 4 (chunked at
+     256 rows a slot a piece; prefix-cached with zero hits: ring blocks
+     are keyed by position; the speculative round two-pass); both
+     tensor-core routes at the layer's widths, the sweep and the quantizer
+     at an expert's [6144,16384]; and a small float32 Mixtral-shaped model
+     with a window of 16 on fp32 activations, card against CPU over 40
+     steps (``swa_small_agreement``);
   7l. quant block 64 (``block64_phase``, after 7e): phase 4's weights
      DAQ-quantized at block 64 and served phase 6's 8 requests through
      ``Engine(slots=8, k_steps=8)``: the sweep's and the quantizer's
@@ -272,6 +292,18 @@ MOE_GEN = 32
 FAMILY_GEN = 16
 SSM_CHUNK = 256
 MOE_CHUNK = 32
+# the sliding-window phase: Mixtral 8x22B at full width cut to 4 of its 56
+# layers (10.42 B parameters; 140.6 B at 56); 8 requests of four lengths
+# about its window of 4,096 rows, 32 tokens each: 4,072 wraps the ring
+# mid-decode, 4,096 at the first decode write, 4,200 and 4,600 are prefilled
+# past it (a ring keeps their last 4,096 rows).  Its paged engines take
+# 256 rows a slot a chunk piece at the least dropless capacity factor,
+# n_experts / top_k = 4: a piece routes at full capacity, so its expert
+# queues hold 8 x 4,096 x 6,144 bf16 = 0.4 GB
+SWA_LAYERS = 4
+SWA_LENS = (4072, 4072, 4096, 4096, 4200, 4200, 4600, 4600)
+SWA_GEN = 32
+SWA_CHUNK = 256
 
 
 def log(*a):
@@ -3265,20 +3297,24 @@ def stacked_dequantize_check(torch, qt) -> None:
         raise AssertionError("moe phase: the stacked dequantize differs from the per-matrix one")
 
 
-def moe_small_agreement(torch, seed: int, device: str = "cuda") -> dict:
-    """A small float32 DeepSeek-V3-shaped model (a dense-prefix layer and an
-    MoE layer of 8 experts of 256, top-2, a shared expert; width 256, vocab
-    1,024) quantized once on the CPU at block 64 and run on the CPU and on
-    ``device`` on fp32 activations (embedding rows fed straight in through
-    the layer functions ``Model.prefill`` / ``decode_step`` run: bf16
-    activations would flip top-k choices between devices), every product
-    on the tensor-core routes there (fp32 x as three stacked bf16 parts: the
-    prefill's 3 x 128 rows on wgmma, the LM heads' and decode steps' 3 x 4
-    on the decode route): a prefill of 4 x 32 tokens and 2 greedy decode
-    steps.  Every routing call's dispatch equal and its combine
-    within 1 bf16 ulp; the last-token logits within 1e-3 of their scale;
-    the greedy tokens equal.  Returns the kernels' launches of the device
-    run."""
+def moe_small_agreement(torch, seed: int, device: str = "cuda", cfg=None, prompt: int = 32,
+                        steps: int = 2, per_layer: int = 7, tol: float = 1e-3,
+                        label: str = "small moe model") -> dict:
+    """A small float32 MoE model (by default DeepSeek-V3-shaped: a
+    dense-prefix layer and an MoE layer of 8 experts of 256, top-2, a shared
+    expert; width 256, vocab 1,024; else ``cfg``, ``per_layer`` quantized
+    products a layer) quantized once on the CPU at block 64 and run on the
+    CPU and on ``device`` on fp32 activations (embedding rows fed straight
+    in through the layer functions ``Model.prefill`` / ``decode_step`` run:
+    bf16 activations would flip top-k choices between devices), every
+    product on the tensor-core routes there (fp32 x as three stacked bf16
+    parts: the prefill's 3 x 4 x ``prompt`` rows on wgmma, the LM heads'
+    and decode steps' 3 x 4 on the decode route): a prefill of 4 x
+    ``prompt`` tokens and ``steps`` greedy decode steps.  Every routing
+    call's dispatch equal and its combine within 1 bf16 ulp; the last-token
+    logits within ``tol`` of their scale; the greedy tokens equal where
+    their top-2 margin exceeds it.  Returns the kernels' launches of the
+    device run."""
     from repro_torch.configs import QuantConfig, get_arch
     from repro_torch.core.policy import tree_map
     from repro_torch.kernels._lib import KERNELS
@@ -3288,11 +3324,11 @@ def moe_small_agreement(torch, seed: int, device: str = "cuda") -> dict:
     from repro_torch.quant_runtime import qlinear
     from repro_torch.quant_runtime.qparams import QuantizedTensor
     from repro_torch.quantize import quantize
-    cfg = dataclasses.replace(get_arch("deepseek-v3"), n_layers=2, first_k_dense=1,
-                              d_model=256, n_heads=2, n_kv_heads=1, head_dim=128, d_ff=256,
-                              d_ff_dense=512, n_experts=8, top_k=2, vocab_size=1024,
-                              dtype="float32")
-    B, S, steps = 4, 32, 2
+    cfg = cfg or dataclasses.replace(get_arch("deepseek-v3"), n_layers=2, first_k_dense=1,
+                                     d_model=256, n_heads=2, n_kv_heads=1, head_dim=128,
+                                     d_ff=256, d_ff_dense=512, n_experts=8, top_k=2,
+                                     vocab_size=1024, dtype="float32")
+    B, S = 4, prompt
     m_cpu, m_dev = build_model(cfg, device="cpu"), build_model(cfg, device=device)
     g = torch.Generator().manual_seed(seed + 13)
     post = m_cpu.init(g)
@@ -3338,12 +3374,13 @@ def moe_small_agreement(torch, seed: int, device: str = "cuda") -> dict:
     finally:
         restore()
     launches = {k.name: k.launches for k in KERNELS}
-    if len(rec_cpu) != len(rec_dev) or len(rec_cpu) != steps + 1:
-        raise AssertionError(f"small moe model: {len(rec_cpu)} / {len(rec_dev)} routing calls")
+    n_moe = sum(n for _, spec, n in m_cpu.groups if spec[1] == "moe")
+    if len(rec_cpu) != len(rec_dev) or len(rec_cpu) != n_moe * (steps + 1):
+        raise AssertionError(f"{label}: {len(rec_cpu)} / {len(rec_dev)} routing calls")
     for i, ((dc, cc), (dd, cd)) in enumerate(zip(rec_cpu, rec_dev)):
         ulp = torch.exp2(torch.floor(torch.log2(cc.abs().clamp_min(2.0 ** -126))) - 7)
         if not torch.equal(dc, dd) or not bool(((cd - cc).abs() <= ulp).all()):
-            raise AssertionError(f"small moe model: routing call {i} differs on {device}: "
+            raise AssertionError(f"{label}: routing call {i} differs on {device}: "
                                  f"{int((dc != dd).any(-1).any(-1).sum())} tokens dispatched "
                                  f"differently")
     worst, held = 0.0, 0
@@ -3351,31 +3388,46 @@ def moe_small_agreement(torch, seed: int, device: str = "cuda") -> dict:
         scale = float(c.abs().max())
         worst = max(worst, float((d - c).abs().max()) / scale)
         top = torch.topk(c, 2, dim=-1).values
-        sure = (top[:, 0] - top[:, 1]) > 1e-3 * scale
+        sure = (top[:, 0] - top[:, 1]) > tol * scale
         if not torch.equal(d.argmax(-1)[sure], c.argmax(-1)[sure]):
-            raise AssertionError(f"small moe model: greedy tokens differ at step {step}")
+            raise AssertionError(f"{label}: greedy tokens differ at step {step}")
         held += int(sure.sum())
-    # 7 products a layer x 2 and the LM head, a forward
-    want = {"fp8_matmul_wgmma": 14, "fp8_matmul_decode": 1 + 15 * steps, "fp8_matmul": 0}
-    log(f"small moe model agreement ({device} vs CPU, fp32 activations, block 64): "
-        f"{len(rec_cpu)} routing calls dispatched equally; logits max |dev - cpu| "
-        f"{worst:.3e} of their scale (tolerance 1e-3); greedy tokens equal, {held} of "
-        f"{B * (steps + 1)} above a 1e-3 margin; launches {json.dumps(launches)}")
-    if worst > 1e-3 or held < B:
-        raise AssertionError("small moe model: logits disagree, or no token was held")
+    # per_layer products a layer and the LM head, a forward
+    n = per_layer * cfg.n_layers
+    want = {"fp8_matmul_wgmma": n, "fp8_matmul_decode": 1 + (n + 1) * steps, "fp8_matmul": 0}
+    log(f"{label} agreement ({device} vs CPU, fp32 activations, block 64, {S} prompt tokens "
+        f"and {steps} steps): {len(rec_cpu)} routing calls dispatched equally; logits max "
+        f"|dev - cpu| {worst:.3e} of their scale (tolerance {tol:g}); greedy tokens equal, "
+        f"{held} of {B * (steps + 1)} above a {tol:g} margin; launches {json.dumps(launches)}")
+    if worst > tol or held < B:
+        raise AssertionError(f"{label}: logits disagree, or no token was held")
     if torch.device(device).type == "cuda" and (
             {k: launches[k] for k in want} != want
             or sum(launches.values()) != sum(want.values())):
-        raise AssertionError(f"small moe model: launches {launches}, expected {want}")
+        raise AssertionError(f"{label}: launches {launches}, expected {want}")
     return launches
 
 
-def moe_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
-    """Phase 7k: DeepSeek-V3 at full width cut to ``MOE_LAYERS`` layers,
-    quantized in two subtrees and served through the port's entry points;
-    the kernels' launches of the quantize and the serve go into
-    ``records``."""
-    from repro_torch.configs import QuantConfig, get_arch
+def moe_serve(torch, records: dict, label: str, cfg, lens: tuple, gen: int, seeds: tuple,
+              subtrees: tuple, want_leaves: list, want_n: int, per_layer: int, device: str):
+    """Phases 7k and 7m's frame: ``cfg``'s model with bf16 weights drawn
+    from ``seeds[0]``, quantized (DAQ, sign, E4M3, block 128) one subtree
+    of ``subtrees`` at a time, each base made just before its quantize (the
+    whole pair would not fit the card beside the fp8 tree), then 8 greedy
+    requests of ``lens`` tokens (drawn from ``seeds[1]``) x ``gen`` through
+    ``Engine(slots=8, k_steps=8)``, the counts zeroed just before the
+    quantize and read just after the serve.  Asserted: the quantized leaves
+    (``want_leaves``, ``want_n`` matrices: each expert of a stack one), one
+    prefill call
+    per prompt length, the sweep's and the quantizer's launches from the
+    tree and the fp8 routes' by ``fp8_serve_launches`` at ``per_layer``
+    products a layer (the router is fp32 and never quantized, the expert
+    stacks are dequantized and multiplied by ``torch.matmul``, as the
+    reference's are), the outputs' lengths and ranges, finite report
+    metrics and no decode step dropping an assignment (its capacity of 8
+    holds all 8 tokens); the launches go into ``records``.  Returns
+    (model, qparams, requests, outputs, stats)."""
+    from repro_torch.configs import QuantConfig
     from repro_torch.engine import Engine
     from repro_torch.kernels._lib import KERNELS
     from repro_torch.kernels.fp8_matmul.kernel import TC_MIN_ROWS
@@ -3384,36 +3436,29 @@ def moe_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
     from repro_torch.quantize import quantize
 
     cuda = torch.device(device).type == "cuda"
-    cfg = dataclasses.replace(get_arch("deepseek-v3"), n_layers=MOE_LAYERS)
     if 2 >= TC_MIN_ROWS or SLOTS >= TC_MIN_ROWS:
         raise AssertionError("fp8_serve_launches counts a prefill's LM head and every decode "
                              f"product on the decode route: groups of 2 and SLOTS must stay "
                              f"below {TC_MIN_ROWS}")
-    log(f"moe phase: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
-        f"head_dim={cfg.resolved_head_dim} experts={cfg.n_experts} x d_ff {cfg.d_ff} top-"
-        f"{cfg.top_k} + {cfg.n_shared_experts} shared, dense prefix {cfg.first_k_dense} x "
-        f"d_ff {cfg.d_ff_dense}, vocab={cfg.vocab_size}, layers={cfg.n_layers} of 61 "
-        f"({cfg.param_count() / 1e9:.3f} B params)")
     model = build_model(cfg, device=device)
     t0 = time.perf_counter()
-    g = torch.Generator(device=model.device).manual_seed(seed + 12)
+    g = torch.Generator(device=model.device).manual_seed(seeds[0])
     post = model.init(g)
     sync(torch, device)
-    log(f"moe phase: post made in {time.perf_counter() - t0:.2f} s")
-    gr = torch.Generator(device=model.device).manual_seed(seed + 14)
-    requests = [torch.randint(0, cfg.vocab_size, (L,), generator=gr, device=model.device)
-                for L in MOE_LENS]
+    log(f"{label}: post made in {time.perf_counter() - t0:.2f} s")
+    gr = torch.Generator(device=model.device).manual_seed(seeds[1])
+    requests = [torch.randint(0, cfg.vocab_size, (n,), generator=gr, device=model.device)
+                for n in lens]
     qcfg = QuantConfig(use_fused_kernel=True)
-    first = ("embed", "final_norm", "prefix")
     drops: list = []
 
-    # ---- the MoE path: counts zeroed just before, read just after ----
+    # ---- the family's path: counts zeroed just before, read just after ----
     for k in KERNELS:
         k.launches = 0
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     quant_s, parts, reports = 0.0, {}, []
-    for keys in (first, ("stack",)):
+    for keys in subtrees:
         sub = {k: post.pop(k) for k in keys}    # each base made just before its quantize
         base = make_base(torch, sub, g)
         sync(torch, device)
@@ -3429,23 +3474,22 @@ def moe_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
     if cuda:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-    engine = Engine(model, qparams, slots=SLOTS, cache_len=max(MOE_LENS) + MOE_GEN,
-                    k_steps=K_STEPS)
+    engine = Engine(model, qparams, slots=SLOTS, cache_len=max(lens) + gen, k_steps=K_STEPS)
     restore = routing_recorder(torch, drops)
     try:
         t0 = time.perf_counter()
-        outputs, stats = engine.serve(requests, gen_tokens=MOE_GEN, return_stats=True)
+        outputs, stats = engine.serve(requests, gen_tokens=gen, return_stats=True)
         sync(torch, device)
         serve_s = time.perf_counter() - t0
     finally:
         restore()
     launches = {k.name: k.launches for k in KERNELS}
-    # ---- end of the MoE path ----
+    # ---- end of the family's path ----
 
     serve_peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else float("nan")
     per_leaf = {k: v for r in reports for k, v in r.per_leaf.items()}
     n = sum(math.prod(v["shape"][:-2]) for v in per_leaf.values())
-    log(f"moe phase, quantize: {quant_s:.2f} s for {sum(r.n_quantized for r in reports)} "
+    log(f"{label}, quantize: {quant_s:.2f} s for {sum(r.n_quantized for r in reports)} "
         f"tensors, {n} leaf-matrices ({sum(r.original_bytes for r in reports) / 1e9:.2f} GB "
         f"bf16 -> {sum(r.quantized_bytes for r in reports) / 1e9:.2f} GB), peak "
         f"{quant_peak:.2f} GB; chosen-alpha hash {alpha_hash(per_leaf)}, code-and-scale hash "
@@ -3456,53 +3500,73 @@ def moe_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
         side[0] += tokens * cfg.top_k
         side[1] += tokens * cfg.top_k - int(kept)
     dec = stats["counters"]["tokens"]
-    log(f"moe phase, serve: {len(outputs)} requests of {list(MOE_LENS)} prompt tokens x "
-        f"{MOE_GEN} in {serve_s:.2f} s ({SLOTS * MOE_GEN / serve_s:.1f} tok/s end to end); "
+    log(f"{label}, serve: {len(outputs)} requests of {list(lens)} prompt tokens x {gen} in "
+        f"{serve_s:.2f} s ({SLOTS * gen / serve_s:.1f} tok/s end to end); "
         f"{stats['prefill_calls']} prefill calls in {stats['prefill_s']:.3f} s for "
         f"{stats['prefill_tokens']} prompt tokens; decode {dec} tokens in "
         f"{stats['decode_s']:.3f} s = {dec / stats['decode_s']:.1f} tok/s "
         f"({stats['decode_s'] / stats['decode_steps'] * 1e3:.2f} ms a step of {SLOTS} slots); "
-        f"peak {serve_peak:.2f} GB; assignments dropped by capacity: prefill "
-        f"{dropped['prefill'][1]} of {dropped['prefill'][0]}, decode {dropped['decode'][1]} "
-        f"of {dropped['decode'][0]}; launches {json.dumps(launches)}")
-    experts = [f"stack/L0/moe/{w}" for w in ("w_down", "w_gate", "w_up")]
-    want_leaves = sorted(["embed/embed", "embed/w_head", *experts,
-                          *(f"stack/L0/moe/shared/{w}" for w in ("w_down", "w_gate", "w_up")),
-                          *(f"{grp}/L0/attn/{w}" for grp in ("prefix", "stack")
-                            for w in ("wk", "wo", "wq", "wv")),
-                          *(f"prefix/L0/mlp/{w}" for w in ("w_down", "w_gate", "w_up"))])
-    want_n = 2 + 7 * cfg.first_k_dense + (7 + 3 * cfg.n_experts) * (MOE_LAYERS
-                                                                     - cfg.first_k_dense)
-    if sorted(per_leaf) != want_leaves or n != want_n:
-        raise AssertionError(f"moe phase: quantized leaves {sorted(per_leaf)} ({n} "
-                             f"leaf-matrices), expected {want_leaves} ({want_n})")
+        f"cache {stats['cache_bytes'] / 1e9:.3f} GB; peak {serve_peak:.2f} GB; assignments "
+        f"dropped by capacity: prefill {dropped['prefill'][1]} of {dropped['prefill'][0]}, "
+        f"decode {dropped['decode'][1]} of {dropped['decode'][0]}; launches "
+        f"{json.dumps(launches)}")
+    if sorted(per_leaf) != sorted(want_leaves) or n != want_n:
+        raise AssertionError(f"{label}: quantized leaves {sorted(per_leaf)} ({n} "
+                             f"leaf-matrices), expected {sorted(want_leaves)} ({want_n})")
     passes = len(sweep_plan(1 + qcfg.n_coarse)) + len(sweep_plan(1 + qcfg.n_fine))
     want = {"scale_search": passes * n, "fp8_quant": n,
-            **fp8_serve_launches(stats, cfg.n_layers)}
-    if stats["prefill_calls"] != len(set(MOE_LENS)):
-        raise AssertionError(f"moe phase: {stats['prefill_calls']} prefill calls, expected "
-                             f"one per prompt length ({len(set(MOE_LENS))})")
+            **fp8_serve_launches(stats, cfg.n_layers, per_layer)}
+    if stats["prefill_calls"] != len(set(lens)):
+        raise AssertionError(f"{label}: {stats['prefill_calls']} prefill calls, expected "
+                             f"one per prompt length ({len(set(lens))})")
     for name, w in want.items():
         if launches[name] != w:
-            raise AssertionError(f"moe phase: {name} launched {launches[name]} times, "
+            raise AssertionError(f"{label}: {name} launched {launches[name]} times, "
                                  f"expected {w}")
     for out in outputs:
-        if len(out) != MOE_GEN or not all(0 <= t < cfg.vocab_size for t in out):
-            raise AssertionError(f"moe phase: bad output row {out[:8]}... ({len(out)} tokens)")
+        if len(out) != gen or not all(0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"{label}: bad output row {out[:8]}... ({len(out)} tokens)")
     for r in reports:
         for side in (r.global_chosen, r.global_default):
             if not all(math.isfinite(v) for v in side.values()):
-                raise AssertionError(f"moe phase: non-finite report metrics {side}")
-        leaf_sign_rates_hold(r, "moe phase")
+                raise AssertionError(f"{label}: non-finite report metrics {side}")
+        leaf_sign_rates_hold(r, label)
     if dropped["decode"][1]:
-        raise AssertionError("moe phase: a decode step dropped an assignment (its capacity of "
+        raise AssertionError(f"{label}: a decode step dropped an assignment (its capacity of "
                              f"8 holds all {SLOTS} tokens)")
     for name, k in launches.items():
         if name in records:
             records[name]["launches"] += k
-    log(f"moe phase: launches asserted ({json.dumps(want)}); first row {outputs[0][:12]}...")
-    cache_len = engine.cfg.cache_len
-    del engine
+    log(f"{label}: launches asserted ({json.dumps(want)}); first row {outputs[0][:12]}...")
+    return model, qparams, requests, outputs, stats
+
+
+def moe_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
+    """Phase 7k: DeepSeek-V3 at full width cut to ``MOE_LAYERS`` layers,
+    quantized in two subtrees and served through the port's entry points
+    (``moe_serve``), then on the paged engines; the kernels' launches of the
+    quantize and the serves go into ``records``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = dataclasses.replace(get_arch("deepseek-v3"), n_layers=MOE_LAYERS)
+    log(f"moe phase: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+        f"head_dim={cfg.resolved_head_dim} experts={cfg.n_experts} x d_ff {cfg.d_ff} top-"
+        f"{cfg.top_k} + {cfg.n_shared_experts} shared, dense prefix {cfg.first_k_dense} x "
+        f"d_ff {cfg.d_ff_dense}, vocab={cfg.vocab_size}, layers={cfg.n_layers} of 61 "
+        f"({cfg.param_count() / 1e9:.3f} B params)")
+    experts = [f"stack/L0/moe/{w}" for w in ("w_down", "w_gate", "w_up")]
+    leaves = ["embed/embed", "embed/w_head", *experts,
+              *(f"stack/L0/moe/shared/{w}" for w in ("w_down", "w_gate", "w_up")),
+              *(f"{grp}/L0/attn/{w}" for grp in ("prefix", "stack")
+                for w in ("wk", "wo", "wq", "wv")),
+              *(f"prefix/L0/mlp/{w}" for w in ("w_down", "w_gate", "w_up"))]
+    model, qparams, requests, outputs, stats = moe_serve(
+        torch, records, "moe phase", cfg, MOE_LENS, MOE_GEN, (seed + 12, seed + 14),
+        (("embed", "final_norm", "prefix"), ("stack",)), leaves,
+        2 + 7 * cfg.first_k_dense + (7 + 3 * cfg.n_experts) * (MOE_LAYERS - cfg.first_k_dense),
+        7, device)
     # the quantize took the bf16 tree apart: the speculative serve's
     # verifier is made again from its seed (the same weights), after the
     # fp8 serves; the rest runs at the least dropless capacity factor
@@ -3511,8 +3575,8 @@ def moe_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
     family_paged_phase(torch, records, "moe phase", model, qparams,
                        lambda: model.init(torch.Generator(device=model.device)
                                           .manual_seed(seed + 12)),
-                       requests, outputs, cache_len, per_layer=7, chunk=MOE_CHUNK,
-                       dropless=dropless)
+                       requests, outputs, max(MOE_LENS) + MOE_GEN, per_layer=7,
+                       chunk=MOE_CHUNK, dropless=dropless)
     if cuda:
         torch.cuda.empty_cache()
     if not cuda:
@@ -3527,6 +3591,157 @@ def moe_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
     moe_kernel_checks(torch, torch.Generator(device="cuda").manual_seed(seed + 15))
     torch.cuda.empty_cache()
     for name, n in moe_small_agreement(torch, seed).items():
+        records[name]["launches"] += n
+
+
+def swa_kernel_checks(torch, g) -> None:
+    """The two tensor-core routes at Mixtral 8x22B's widths (wq and wo
+    [6144,6144], wk / wv [6144,1024], the LM head [6144,32768]) at a decode
+    step's M = 8 and a prefill's M = 512, and the sweep (11 candidates) and
+    the quantizer at an expert's [6144,16384], each against its plain
+    version and timed beside its bound and cuBLAS."""
+    from repro_torch.kernels.fp8_matmul.kernel import matmul_fp8_decode, matmul_fp8_wgmma
+    for K, N in ((6144, 6144), (6144, 1024), (6144, 32768)):
+        for name, run, M in (("fp8_matmul_decode", matmul_fp8_decode, SLOTS),
+                             ("fp8_matmul_wgmma", matmul_fp8_wgmma, 512)):
+            check_matmul(torch, f"{name} (swa phase)", run, MatmulCase(torch, g, M, K, N),
+                         time_it=True)
+            torch.cuda.empty_cache()
+    weights = delta_weights(torch, g)
+    check_sweeps(torch, weights, None, None, cases=(((6144, 16384), 11, 128, 448.0, True),))
+    check_quantizer(torch, weights, cases=(((6144, 16384), 128, True, 0),))
+
+
+def swa_small_agreement(torch, seed: int, device: str = "cuda") -> dict:
+    """``moe_small_agreement`` on a small float32 Mixtral-shaped model (two
+    layers of 8 experts of 256, top-2, width 256, vocab 1,024) with a
+    sliding window of 16: a 20-token prompt and 40 greedy decode steps, so
+    the ring wraps three times.  Over 40 steps a device difference that
+    moves an expert output across a bf16 rounding boundary before the
+    combine (one bf16 ulp, 2^-8 of that element) reaches the logits, so
+    they are held to 4e-3 of their scale, not the 2-step check's 1e-3 (on
+    an H100 at 700 W the worst of the 41 readings was 1.69e-3).  Returns
+    the kernels' launches of the device run."""
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch("mixtral-8x22b"), n_layers=2, d_model=256, n_heads=2,
+                              n_kv_heads=1, head_dim=128, d_ff=256, n_experts=8, top_k=2,
+                              vocab_size=1024, sliding_window=16, dtype="float32")
+    return moe_small_agreement(torch, seed, device, cfg=cfg, prompt=20, steps=40, per_layer=4,
+                               tol=4e-3, label="small sliding-window model")
+
+
+def ring_agreement(torch, model, qparams, requests, outputs) -> None:
+    """The ring against a one-shot prefill at full width, on ``model`` at a
+    dropless capacity factor (a token's experts are then its top-2 choices,
+    never a capacity drop): the pair of ``SWA_LENS``' shortest prompts
+    prefilled into the ring, then teacher-forced through their served
+    tokens by decode steps, so the ring wraps mid-decode; one more decode
+    step's logits against the last-token logits of a one-shot prefill of
+    the whole sequence, within the bf16 rule (2e-2 of the logit scale) for
+    each request whose recorded top-2 routing (every layer) agrees between
+    the two forwards, as the reference's ring test holds it (a flip at a
+    narrow router margin moves the logits past any tolerance)."""
+    L = min(SWA_LENS)
+    rows = [i for i, r in enumerate(requests) if r.shape[0] == L]
+    toks = torch.stack([torch.cat([requests[i], torch.tensor(outputs[i], dtype=requests[i].dtype,
+                                                             device=requests[i].device)])
+                        for i in rows])
+    T = toks.shape[1] - 1                 # the step under test reads position T
+    W = model.cfg.sliding_window
+    rec_step, rec_full = [], []
+    _, cache = model.prefill(qparams, {"tokens": toks[:, :L]}, cache_len=T + 1)
+    if cache["stack"]["L0"]["k"].shape[2] != W or not L < W < T:
+        raise AssertionError(f"swa phase: the ring check's cache or positions ({L}, {T}) do "
+                             f"not cross the window {W}")
+    for t in range(L, T):
+        _, cache = model.decode_step(qparams, toks[:, t:t + 1], cache)
+    restore = routing_recorder(torch, rec_step, keep=True)
+    try:
+        step, _ = model.decode_step(qparams, toks[:, T:T + 1], cache)
+    finally:
+        restore()
+    del cache
+    restore = routing_recorder(torch, rec_full, keep=True)
+    try:
+        full, _ = model.prefill(qparams, {"tokens": toks}, cache_len=T + 1)
+    finally:
+        restore()
+    step, full = step.float().cpu(), full.float().cpu()
+    B, S = toks.shape
+    agree = torch.ones(B, dtype=torch.bool)
+    for (ds, _), (df, _) in zip(rec_step, rec_full):
+        chosen_step = ds.amax(-1).reshape(B, -1)                    # [B, E] the experts
+        chosen_full = df.amax(-1).reshape(B, S, -1)[:, -1]
+        agree &= (chosen_step == chosen_full).all(-1)
+    rel = ((step - full).abs().amax(-1) / full.abs().amax(-1)).tolist()
+    log(f"swa phase, ring check: {B} requests of {L} prompt tokens and {T - L} decode steps "
+        f"(the ring of {W} rows wrapped at {W}); the step at position {T} against a one-shot "
+        f"prefill of {T + 1} tokens: max |step - prefill| / max |prefill| "
+        f"{', '.join(f'{r:.3e}' for r in rel)}; routing agrees on {int(agree.sum())} of {B}")
+    if len(rec_step) != model.cfg.n_layers or len(rec_full) != model.cfg.n_layers:
+        raise AssertionError("swa phase, ring check: a routing call was not recorded")
+    bad = [r for r, a in zip(rel, agree.tolist()) if a and r > 2e-2]
+    if bad:
+        raise AssertionError(f"swa phase, ring check: the ring's logits differ from the one-shot "
+                             f"prefill's by {bad} of their scale where routing agrees")
+
+
+def swa_phase(torch, records: dict, seed: int, device: str = "cuda") -> None:
+    """Phase 7m: Mixtral 8x22B (sliding window 4,096) at full width cut to
+    ``SWA_LAYERS`` layers, quantized in two subtrees and served through the
+    port's entry points with ring caches (``moe_serve``), then on the paged
+    engines; the kernels' launches of the quantize and the serves go into
+    ``records``."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = dataclasses.replace(get_arch("mixtral-8x22b"), n_layers=SWA_LAYERS)
+    W = cfg.sliding_window
+    # the requests cross the ring every way
+    if not (min(SWA_LENS) < W < min(SWA_LENS) + SWA_GEN and W in SWA_LENS
+            and sum(n > W for n in SWA_LENS) >= 2):
+        raise AssertionError(f"swa phase: prompt lengths {SWA_LENS} do not wrap the window {W} "
+                             f"mid-decode, at the first decode write and in the prefill")
+    log(f"swa phase: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/{cfg.n_kv_heads} "
+        f"head_dim={cfg.resolved_head_dim} experts={cfg.n_experts} x d_ff {cfg.d_ff} top-"
+        f"{cfg.top_k}, sliding window {W}, vocab={cfg.vocab_size}, rope theta "
+        f"{cfg.rope_theta:g}, layers={cfg.n_layers} of 56 ({cfg.param_count() / 1e9:.3f} B "
+        f"params)")
+    leaves = ["embed/embed", "embed/w_head",
+              *(f"stack/L0/attn/{w}" for w in ("wk", "wo", "wq", "wv")),
+              *(f"stack/L0/moe/{w}" for w in ("w_down", "w_gate", "w_up"))]
+    # a layer's four attention products on the fp8 routes
+    model, qparams, requests, outputs, stats = moe_serve(
+        torch, records, "swa phase", cfg, SWA_LENS, SWA_GEN, (seed + 16, seed + 17),
+        (("embed", "final_norm"), ("stack",)), leaves,
+        2 + (4 + 3 * cfg.n_experts) * cfg.n_layers, 4, device)
+    ring_bytes = cfg.n_layers * 2 * SLOTS * W * cfg.n_kv_heads * cfg.resolved_head_dim * 2 \
+        + SLOTS * 4
+    if stats["cache_bytes"] != ring_bytes:
+        raise AssertionError(f"swa phase: the cache holds {stats['cache_bytes']} bytes, not a "
+                             f"ring of {W} rows ({ring_bytes})")
+    # the ring check and the paged engines after (1) run at the least
+    # dropless capacity factor; the quantize took the bf16 tree apart, so
+    # the speculative serve's verifier is made again from its seed (the
+    # same weights), after the fp8 serves
+    dropless = build_model(dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.top_k),
+                           device=device)
+    ring_agreement(torch, dropless, qparams, requests, outputs)
+    if cuda:
+        torch.cuda.empty_cache()
+    family_paged_phase(torch, records, "swa phase", model, qparams,
+                       lambda: model.init(torch.Generator(device=model.device)
+                                          .manual_seed(seed + 16)),
+                       requests, outputs, max(SWA_LENS) + SWA_GEN, per_layer=4,
+                       chunk=SWA_CHUNK, dropless=dropless)
+    del qparams
+    if not cuda:
+        return
+    torch.cuda.empty_cache()
+    swa_kernel_checks(torch, torch.Generator(device="cuda").manual_seed(seed + 18))
+    torch.cuda.empty_cache()
+    for name, n in swa_small_agreement(torch, seed).items():
         records[name]["launches"] += n
 
 
@@ -3545,9 +3760,10 @@ def family_paged_phase(torch, records: dict, label: str, model, qparams, make_po
       tokens equal to the one-shot serve's ((1), or (2) for MoE);
     * (4) the prefix-cached engine, cold then warm: MoE shares blocks (warm
       hits > 0, fewer prompt tokens prefilled, warm == cold token for
-      token); an SSM stack's state is recurrent, so it shares none (zero
-      hits both times, every prompt token prefilled, each serve == the
-      chunked one token for token: the same pieces in the same order);
+      token); an SSM stack's state is recurrent and a ring's blocks are
+      keyed by position, so those share none (zero hits both times, every
+      prompt token prefilled, each serve == the chunked one token for
+      token: the same pieces in the same order);
     * (5) the bf16 tree (``make_post()``, the tree ``qparams`` quantizes)
       on the paged engine, then verifying a DAQ draft (``qparams``) with
       ``n_spec=N_SPEC``: first tokens equal (the same bf16 prefill), the
@@ -3664,7 +3880,7 @@ def family_paged_phase(torch, records: dict, label: str, model, qparams, make_po
         total = sum(int(r.shape[0]) for r in requests)
         if cs["prefix_hits"] or ws["prefix_hits"] or pe._hold_blocks \
                 or cs["prefill_tokens"] != total or ws["prefill_tokens"] != total:
-            raise AssertionError(f"{label}, (4): an SSM stack shared a prompt block")
+            raise AssertionError(f"{label}, (4): an unshared stack shared a prompt block")
         if cold != chunked or warm != chunked:
             raise AssertionError(f"{label}, (4): the unshared prefix-cached serves' tokens "
                                  f"differ from the chunked serve's")
@@ -4069,6 +4285,9 @@ def main() -> int:
     t0 = time.perf_counter()
     moe_phase(torch, records, args.seed)
     log(f"moe phase passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    swa_phase(torch, records, args.seed)
+    log(f"swa phase passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     quantize_breakdown(torch, args.seed)
     log(f"quantize breakdown took {time.perf_counter() - t0:.1f} s")

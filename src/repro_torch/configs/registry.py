@@ -1,8 +1,8 @@
 """Architecture registry: ``get_arch(<id>)`` + reduced smoke configs.
 
-The port registers the architectures its model code runs (the dense, SSM
-and MoE families so far); ``reduced`` is the reference's rule for tiny
-same-family configs.
+The port registers the architectures its model code runs: the dense, SSM
+and MoE families, sliding-window attention included (Mixtral's ring
+caches); ``reduced`` is the reference's rule for tiny same-family configs.
 """
 from __future__ import annotations
 
@@ -12,8 +12,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.deepseek_v3 import CONFIG as _dsv3
 from repro_torch.configs.glm4_9b import CONFIG as _glm4
 from repro_torch.configs.mamba2_780m import CONFIG as _mamba2
+from repro_torch.configs.mixtral_8x22b import CONFIG as _mixtral
 
-ARCHS: dict[str, ModelConfig] = {c.name: c for c in (_glm4, _mamba2, _dsv3)}
+ARCHS: dict[str, ModelConfig] = {c.name: c for c in (_glm4, _mamba2, _dsv3, _mixtral)}
 
 # families whose model code the port runs (models/lm.py::layer_plan)
 PORTED_FAMILIES = ("dense", "ssm", "moe")

@@ -56,19 +56,26 @@ fetched; everything per token lives on the device:
   acceptance rate (stats ``draft_accepted / draft_tokens``) measures how
   closely the quantized tree follows the full-precision one.
 
-Every family the port runs serves on every engine, under the reference's
-rules (``check_config``): an MoE layer routes at full capacity in a chunk
-piece and a verify (``models/lm.py``), so a speculative MoE serve must be
-dropless; chunked prefill over SSM state needs ``chunk_size`` on the
-``ssm_chunk`` grid.  A paged cache keeps a Mamba layer's state per slot
-beside the attention pools: admission copies a prefilled group's state
-into its slots (``_scatter_paged``) or zeroes a chunked slot's
-(``_admit_chunk``).
+Every family the port runs serves on every engine, sliding windows
+included, under the reference's rules (``check_config``): an MoE layer
+routes at full capacity in a chunk piece and a verify (``models/lm.py``),
+so a speculative MoE serve must be dropless; chunked prefill over SSM
+state needs ``chunk_size`` on the ``ssm_chunk`` grid; a speculative
+round's span must fit inside a sliding window, and a paged sliding-window
+cache must cover the window in blocks that divide it.  A paged cache keeps
+a Mamba layer's state per slot beside the attention pools: admission
+copies a prefilled group's state into its slots (``_scatter_paged``) or
+zeroes a chunked slot's (``_admit_chunk``).  A sliding-window stack pages
+its ring: each slot holds ``window / block_size`` blocks from admission to
+release, whatever its length (admission, reservation and the chunked
+loop count the whole ring), and its blocks are keyed by position modulo
+the window, so the prefix cache shares none of them (zero hits).
 
 Every prefill the engine runs (one-shot or a chunk) uses one flash tile
 shape, ``(4 * block_size, blocks_for(cache_len) * block_size)``
 (``Engine._tiles``), so on the CPU a chunked prefill gives the one-shot
-prefill's bits and greedy tokens.
+prefill's bits and greedy tokens (a ring's chunk gathers its kv on that
+tile grid, ``attention.paged_prefill_attention``).
 
 **Telemetry** (``repro_torch.telemetry``): ``metrics=`` (a
 ``MetricsRegistry``) records each request's lifecycle and the serve's
@@ -143,8 +150,10 @@ def check_config(mcfg, cfg: EngineConfig) -> None:
     weights (the serve CLI checks them before it makes any).  The paged,
     chunked, prefix-cached and speculative engines serve every ported
     family, with the reference's family rules: chunked prefill over SSM
-    state is exact only on the SSD chunk grid, and a speculative MoE serve
-    must route dropless."""
+    state is exact only on the SSD chunk grid, a speculative MoE serve must
+    route dropless, a speculative round's span must fit inside a sliding
+    window, and a paged ring must cover the window in blocks that divide
+    it."""
     if cfg.k_steps < 1:
         raise ValueError(f"k_steps must be >= 1, got {cfg.k_steps}")
     if (cfg.chunk_size or cfg.prefix_cache) and not cfg.paged:
@@ -158,6 +167,10 @@ def check_config(mcfg, cfg: EngineConfig) -> None:
                              f"k_steps={cfg.k_steps}): the dispatch runs k_steps "
                              f"speculative rounds and sizes its token grid "
                              f"k_steps*(n_spec+1) — raise k_steps or lower n_spec")
+        if mcfg.sliding_window and cfg.n_spec + 1 > mcfg.sliding_window:
+            raise ValueError(f"n_spec + 1 ({cfg.n_spec + 1}) must fit inside the sliding "
+                             f"window ({mcfg.sliding_window}): a round's verify span may not "
+                             f"wrap the whole ring")
         if mcfg.family == "moe" and mcfg.capacity_factor * mcfg.top_k < mcfg.n_experts:
             raise ValueError(
                 f"speculative verify routes MoE dropless, but this config's decode path "
@@ -166,6 +179,15 @@ def check_config(mcfg, cfg: EngineConfig) -> None:
                 f"could diverge from the non-speculative engine when an expert queue "
                 f"overflows.  Serve dropless (capacity_factor >= n_experts / top_k) to "
                 f"speculate — what a serving engine wants regardless")
+    window = mcfg.sliding_window
+    if cfg.paged and window:
+        if cfg.cache_len < window:
+            raise ValueError(f"paged SWA serving needs cache_len >= sliding_window "
+                             f"({cfg.cache_len} < {window})")
+        if window % cfg.block_size:
+            raise ValueError(f"block_size {cfg.block_size} must divide the sliding window "
+                             f"{window}: ring positions are block-mapped (pos % window "
+                             f"straddles the block grid otherwise)")
     chunk = cfg.chunk_size or (4 * cfg.block_size if cfg.prefix_cache else 0)
     if chunk and mcfg.family == "ssm" and chunk % mcfg.ssm_chunk:
         raise ValueError(f"chunked prefill over SSM state is bit-exact only on the SSD chunk "
@@ -207,13 +229,21 @@ class Engine:
         # SSM layer's state and conv history would take them in
         self._can_pad = mcfg.family == "dense" and not mcfg.sliding_window
         # a prompt block's K/V is a function of its token prefix only where
-        # every layer is attention: an SSM stack's state is recurrent, so it
-        # runs chunked but unshared (no match, no hits, nothing registered)
-        self._can_match = cfg.prefix_cache and mcfg.family in ("dense", "moe")
-        self._mb = P.blocks_for(cfg.cache_len, cfg.block_size)       # blocks per slot
+        # every layer is attention over linear positions: an SSM stack's
+        # state is recurrent and a ring's blocks are keyed by position modulo
+        # the window, so those run chunked but unshared (no match, no hits,
+        # nothing registered)
+        self._can_match = (cfg.prefix_cache and mcfg.family in ("dense", "moe")
+                           and not mcfg.sliding_window)
+        # blocks per slot: a sliding window pages its ring (check_config:
+        # cache_len covers it), the rest the whole cache
+        self._window = mcfg.sliding_window if cfg.paged else 0
+        self._mb = P.blocks_for(min(cfg.cache_len, mcfg.sliding_window or cfg.cache_len),
+                                cfg.block_size)
         # one flash tile shape for every prefill: a chunk's rows then give
         # the one-shot prefill's bits (PERF.md, decision a)
-        self._tiles = (4 * cfg.block_size, self._mb * cfg.block_size)
+        self._tiles = (4 * cfg.block_size, P.blocks_for(cfg.cache_len, cfg.block_size)
+                       * cfg.block_size)
         self._ctr_live0 = 0     # blocks out of the pool when the counters were zeroed
         self._hold_blocks: set[int] = set()     # prefix-index and pending holds
         if cfg.paged:
@@ -303,18 +333,22 @@ class Engine:
     def _group_cache_len(self, Lmax: int) -> int:
         """Prefill cache rows for one admitted group: contiguous, the full
         per-slot capacity; paged, just the block-aligned prompt rows (capped
-        at the slot's capacity), so admission memory tracks the prompt."""
+        at the slot's capacity), so admission memory tracks the prompt; a
+        paged ring the whole ring (its rows are the decode's)."""
         cfg = self.cfg
-        if not cfg.paged:
+        if not cfg.paged or self._window:
             return cfg.cache_len
         return min(P.blocks_for(Lmax, cfg.block_size), self._mb) * cfg.block_size
 
     def _blocks_needed(self, prompt_len: int, gen_tokens: int) -> int:
-        """Worst-case pool blocks one request can ever hold: it writes
-        ``prompt + gen - 1`` cache rows over its lifetime, capped at the
-        slot's capacity (the cache drops overflow writes).  A speculative
-        round writes up to ``n_spec`` rows past the budget before it rolls
-        back (the last round's span), so the reservation covers them too."""
+        """Worst-case pool blocks one request can ever hold: a ring its whole
+        window; otherwise it writes ``prompt + gen - 1`` cache rows over its
+        lifetime, capped at the slot's capacity (the cache drops overflow
+        writes).  A speculative round writes up to ``n_spec`` rows past the
+        budget before it rolls back (the last round's span), so the
+        reservation covers them too."""
+        if self._window:
+            return self._mb
         return min(P.blocks_for(prompt_len + gen_tokens - 1 + self.cfg.n_spec,
                                 self.cfg.block_size), self._mb)
 
@@ -501,8 +535,9 @@ class Engine:
             if cfg.paged:
                 # an over-long prompt keeps only its first capacity rows, as
                 # the contiguous cache does: debit exactly the blocks the
-                # scatter fills
-                counts = torch.tensor([min(P.blocks_for(L, cfg.block_size), self._mb)
+                # scatter fills (a ring fills all of its own)
+                counts = torch.tensor([self._mb if self._window else
+                                       min(P.blocks_for(L, cfg.block_size), self._mb)
                                        for L in glen], dtype=torch.int32, device=dev)
                 cache, state = self._scatter_paged(
                     cache, state, part, torch.tensor(g_slots, device=dev),
@@ -663,16 +698,20 @@ class Engine:
                     partial = partial_id is not None
                     matched_tokens = L if partial else len(matched) * bs
                     pf_start = min(matched_tokens, L - 1)
-                    new_full = full - len(matched)
-                    n_new = new_full + (1 if part_len and not partial else 0)
-                    shared = matched + ([partial_id] if partial else [])
-                    n_ret = new_full if self._can_match else 0
-                    # a speculative round overshoots the budget by up to
-                    # n_spec rows before it rolls back, as _blocks_needed
-                    lifetime = min(P.blocks_for(min(L + gen_tokens - 1 + cfg.n_spec, cap_rows),
-                                                bs), MB)
-                    cow_spare = 1 if partial and gen_tokens > 1 else 0
-                    slot_need = (n_new - n_ret) + lifetime - P.blocks_for(L, bs) + cow_spare
+                    if self._window:    # the whole ring, private, from admission on
+                        shared, n_new, n_ret, slot_need = [], MB, 0, MB
+                    else:
+                        new_full = full - len(matched)
+                        n_new = new_full + (1 if part_len and not partial else 0)
+                        shared = matched + ([partial_id] if partial else [])
+                        n_ret = new_full if self._can_match else 0
+                        # a speculative round overshoots the budget by up to
+                        # n_spec rows before it rolls back, as _blocks_needed
+                        lifetime = min(P.blocks_for(min(L + gen_tokens - 1 + cfg.n_spec,
+                                                        cap_rows), bs), MB)
+                        cow_spare = 1 if partial and gen_tokens > 1 else 0
+                        slot_need = (n_new - n_ret) + lifetime - P.blocks_for(L, bs) \
+                            + cow_spare
                     demand = sum(slot_rsv) + len(self._hold_blocks) + slot_need + n_ret - NB
                     if demand <= 0 or try_evict(demand) >= demand:
                         fits = True

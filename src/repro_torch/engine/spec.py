@@ -2,7 +2,8 @@
 tree verifies, inside one K-round dispatch composed with chunked prefill
 and refcounted prefix caching.
 
-Port of ``repro/engine/spec.py`` for the dense, MoE and SSM families.  The
+Port of ``repro/engine/spec.py`` for the dense, MoE and SSM families,
+sliding windows included.  The
 quantized tree (DAQ, AbsMax, ...) drafts up to ``n_spec`` tokens a round,
 one verify forward of the full-precision tree scores them all, and a
 prefix is accepted.  The **draft acceptance rate** is then a data-free, token-level
@@ -39,14 +40,18 @@ One round (one of the dispatch's K steps) runs, in order:
 5. **commit and rollback** — ``lengths`` advances by the emitted count;
    rejected rows stay in the pools, masked by every later read and
    overwritten by later writes, their blocks kept for the slot to grow
-   into.  A recurrent state cannot be rewound by a mask, so a stack with
-   Mamba layers runs two passes, as the reference does: the round
-   snapshots the per-slot SSM leaves before the draft and puts them back
-   before the verify, and after acceptance puts them back again and runs
-   the verify a second time with ``valid`` = the emitted count, which
-   leaves each slot's state after exactly its accepted rows.  The
-   reference keeps the pre-round cache as a value; the snapshot is its
-   in-place counterpart (device copies, no host sync).
+   into.  A recurrent state cannot be rewound by a mask, and neither can
+   a sliding-window ring: a row written at position ``p`` evicts position
+   ``p - window``, which later rows still read.  So a stack with Mamba
+   layers or a ring runs two passes, as the reference does: the round
+   snapshots the per-slot SSM leaves and the ring rows of its span (``[len,
+   len + n_spec + 1)`` modulo the window, in every attention layer) before
+   the draft and puts them back before the verify, and after acceptance
+   puts them back again and runs the verify a second time with ``valid`` =
+   the emitted count, which leaves each slot's state and ring after
+   exactly its accepted rows.  The reference keeps the pre-round cache as
+   a value; the snapshot is its in-place counterpart (device copies, no
+   host sync).
 6. **emit** — ``min(accepted + 1, remaining)`` tokens (the budget clamp;
    a clamped-away token lies past the request's end).
 7. **release** the blocks of slots whose budget drained, inside the round.
@@ -55,8 +60,8 @@ One round (one of the dispatch's K steps) runs, in order:
    token through column 0 of the round's grid (it did not speculate that
    round) and speculates from the next.
 
-Hybrid stacks and sliding-window rings are not ported: ``Model`` raises
-for them (ROADMAP Queue A 5).
+Hybrid stacks are not ported: ``Model`` raises for them (ROADMAP Queue
+A 5).
 
 Guarantee: greedy speculative output equals the non-speculative paged
 engine's token for token for any draft and any depth trajectory, as far as
@@ -70,7 +75,7 @@ from dataclasses import dataclass
 
 import torch
 
-from repro_torch.engine.paged import BSTATE_KEYS, alloc_span, release_slots
+from repro_torch.engine.paged import BSTATE_KEYS, alloc_span, release_slots, span_targets
 from repro_torch.engine.sampler import SamplingParams, gumbel_argmax, probs, sample
 from repro_torch.engine.scheduler import chunk_prefill_substep
 from repro_torch.models.lm import cow_copy_blocks
@@ -226,21 +231,34 @@ def make_spec_dispatch(model, sp: SamplingParams, k_steps: int, n_spec: int, *,
     fields when chunked).  Like the plain dispatch it is a Python loop of
     device work with no host sync.
 
-    A stack with Mamba layers runs the two-pass round (step 5 of the module
-    docstring)."""
-    # every per-slot leaf (a Mamba layer's state): what a two-pass round
-    # snapshots and puts back
-    def state_leaves(cache):
-        return [leaf for grp, _, _ in model.groups
-                for name, leaf in cache[grp]["L0"].items() if name not in ("pk", "pv")]
-
-    def restore(cache, saved):
-        for leaf, old in zip(state_leaves(cache), saved):
-            leaf.copy_(old)
-
-    two_pass = model.spec[0] == "mamba"
+    A stack with Mamba layers or a sliding-window ring runs the two-pass
+    round (step 5 of the module docstring)."""
+    two_pass = model.spec[0] == "mamba" or bool(model.cfg.sliding_window)
     paged_kv = model.spec[0] == "attn"
     S1 = n_spec + 1
+
+    def snapshot(cache, lengths, ring: bool) -> list:
+        """What a two-pass round puts back: every per-slot leaf (a Mamba
+        layer's state) whole, and for a ring each attention pool's rows at
+        the round's span targets."""
+        saved = [(leaf, None, leaf.clone()) for grp, _, _ in model.groups
+                 for name, leaf in cache[grp]["L0"].items() if name not in ("pk", "pv")]
+        if ring:
+            bs = cache["stack"]["L0"]["pk"].shape[2]
+            wblk, woff = span_targets({k: cache[k] for k in BSTATE_KEYS}, lengths,
+                                      torch.full_like(lengths, S1), S1, bs,
+                                      cache["tbl"].shape[1] * bs, True)
+            at = (wblk.long(), woff.long())
+            saved += [(pool, at, pool[:, at[0], at[1]]) for grp, _, _ in model.groups
+                      for name, pool in cache[grp]["L0"].items() if name in ("pk", "pv")]
+        return saved
+
+    def restore(saved) -> None:
+        for leaf, at, old in saved:
+            if at is None:
+                leaf.copy_(old)
+            else:
+                leaf[:, at[0], at[1]] = old
 
     @torch.no_grad()
     def dispatch(params, draft_params, state: dict, cache: dict, depth: torch.Tensor, gen):
@@ -250,9 +268,11 @@ def make_spec_dispatch(model, sp: SamplingParams, k_steps: int, n_spec: int, *,
         cols = torch.arange(S1, device=dev)[None, :]
         toks = torch.empty((B, k_steps, S1), dtype=_I32, device=dev)
         emitted = torch.empty((B, k_steps, S1), dtype=torch.bool, device=dev)
+        ring = False
         if paged_kv:
             bs = cache["stack"]["L0"]["pk"].shape[2]
             cap = cache["tbl"].shape[1] * bs
+            ring = model._ring(cache)
         st = state
         for r in range(k_steps):
             ctr, active, lengths = st["ctr"], st["active"], cache["lengths"]
@@ -262,15 +282,15 @@ def make_spec_dispatch(model, sp: SamplingParams, k_steps: int, n_spec: int, *,
             blocked = torch.zeros_like(active)
             if paged_kv:
                 bstate, cow_src, cow_dst, blocked = alloc_span(
-                    {k: cache[k] for k in BSTATE_KEYS}, lengths, S1, bs, cap, False, cow=cow)
+                    {k: cache[k] for k in BSTATE_KEYS}, lengths, S1, bs, cap, ring, cow=cow)
                 cache = {**cache, **bstate}
                 if cow:
                     cache = cow_copy_blocks(cache, cow_src, cow_dst)
                     ctr = bump(ctr, cow_copies=(cow_src != cow_dst).sum(dtype=_I32))
             active_r = active & ~blocked
             sa = cache["slot_active"]
-            if two_pass:    # the pre-round state, which the draft overwrites
-                saved = [leaf.clone() for leaf in state_leaves(cache)]
+            if two_pass:    # the pre-round state and ring rows, which the draft overwrites
+                saved = snapshot(cache, lengths, ring)
             # ---- 2. draft (quantized tree) ----
             dcache, cur = {**cache, "slot_active": sa & ~blocked}, st["cur"]
             drafts, dlogits = [], []
@@ -283,7 +303,7 @@ def make_spec_dispatch(model, sp: SamplingParams, k_steps: int, n_spec: int, *,
             drafts = torch.stack(drafts, dim=1)                      # [B, n]
             # ---- 3. verify (full-precision tree, one forward) ----
             if two_pass:
-                restore(dcache, saved)
+                restore(saved)
             vtoks = torch.cat([st["cur"], drafts], dim=1)
             v_logits, cache = model.verify_chunk_paged(
                 params, vtoks, {**dcache, "lengths": lengths, "slot_active": sa}, lengths,
@@ -298,7 +318,7 @@ def make_spec_dispatch(model, sp: SamplingParams, k_steps: int, n_spec: int, *,
             # ---- 5. commit and rollback (two-pass: the accepted rows again
             # from the pre-round state) ----
             if two_pass:
-                restore(cache, saved)
+                restore(saved)
                 _, cache = model.verify_chunk_paged(params, vtoks, {**cache, "lengths": lengths},
                                                     lengths, m)
                 del saved

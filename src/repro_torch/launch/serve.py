@@ -29,11 +29,13 @@ reference, with the same checks and messages, and one more, ``--device``
   model's vocabulary) and says so; ``--reduced`` (512 tokens) uses the
   full vocabulary, as the reference does.
 * **Every family on every engine** — ``--paged``, ``--chunk-size``,
-  ``--prefix-cache`` and ``--spec-draft`` serve the MoE (``deepseek-v3``)
-  and SSM (``mamba2-780m``) archs too; a configuration the engine's family
-  rules refuse (``--spec-draft`` on MoE below dropless capacity, an SSM
-  ``--chunk-size`` off the ``ssm_chunk`` grid) exits with the engine's
-  message before any weights are made.
+  ``--prefix-cache`` and ``--spec-draft`` serve the MoE (``deepseek-v3``,
+  and ``mixtral-8x22b`` with its sliding-window ring caches) and SSM
+  (``mamba2-780m``) archs too; a configuration the engine's rules refuse
+  (``--spec-draft`` on MoE below dropless capacity, an SSM
+  ``--chunk-size`` off the ``ssm_chunk`` grid, a ``--block-size`` that
+  does not divide the sliding window) exits with the engine's message
+  before any weights are made.
 * **Not ported**: ``--mesh`` other than 0 (sharded serving, ROADMAP Queue
   A 9) exits with a message, and so does ``--daq --method smoothquant`` /
   ``awq`` on an MoE arch (their calibration forward runs no MoE layer yet,

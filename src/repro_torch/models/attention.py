@@ -6,7 +6,11 @@ new token against a contiguous cache, or against the paged block pool
 through a block-table gather (``paged_decode_attention``); a prefill chunk
 runs against the paged pool the same way (``paged_prefill_attention``), and
 a speculative verify chunk runs the decode math once per row
-(``paged_verify_attention``).
+(``paged_verify_attention``).  A table spanning exactly the sliding window
+is a ring (position ``p`` at row ``p % window``): decode reads it through
+an effective length, a prefill chunk gathers the window's rows by
+position before it writes, and a verify row rebuilds the ring a decode
+step at its position would read.
 GQA is computed in grouped form — q is reshaped to [B, S, Kv, G, hd] and
 contracted against un-repeated k/v.
 """
@@ -163,24 +167,47 @@ def paged_prefill_attention(q, pk, pv, k_new, v_new, tbl, start, valid, *, windo
     positions ``start[b] + j`` (rows ``j >= valid[b]`` are pads); the pools
     and ``tbl`` are the paged cache before the chunk's rows are written.
     The kv buffer is the table's gather overlaid with the fresh rows, so
-    each query row attends exactly the prefix ``[0, pos]``; with the tiles
-    of a one-shot prefill (``q_chunk`` / ``kv_chunk``) a row's result is
-    the one-shot prefill's, as a masked kv row and a fully masked tile
-    leave the online softmax unchanged.  Linear tables only (sliding-window
-    rings are not ported)."""
-    if window:
-        raise NotImplementedError("sliding-window (ring) caches are not ported yet")
+    each query row attends exactly the prefix ``[0, pos]`` (window-banded
+    under a sliding window); with the tiles of a one-shot prefill
+    (``q_chunk`` / ``kv_chunk``) a row's result is the one-shot prefill's,
+    as a masked kv row and a fully masked tile leave the online softmax
+    unchanged.
+
+    A ring table (``MB * bs == window``) holds only the last ``window``
+    positions, so the buffer is gathered by position, before the chunk's
+    writes (they wrap the ring and would evict rows its early queries
+    need): kv tiles of ``kv_chunk`` rows (``window + C`` when not given)
+    from ``base``, the slot's first in-window position rounded down to a
+    tile, enough of them to reach the chunk's last row.  A tile then covers
+    the positions of the one-shot prefill's tile in the same columns, so
+    the rows keep its bits; positions before the window are gathered from
+    ring rows that hold newer ones, and the window mask hides them."""
     from repro_torch.engine.paged import gather_blocks
-    C = k_new.shape[1]
-    gk, gv = gather_blocks(pk, tbl), gather_blocks(pv, tbl)
-    pos = torch.arange(gk.shape[1], device=q.device)[None]
-    rel = pos - start[:, None]                                  # [B, cap]
+    B, C = k_new.shape[:2]
+    bs = pk.shape[1]
+    cap = tbl.shape[1] * bs
+    if window and cap == window:                                # ring layout
+        ck = kv_chunk or window + C
+        kv_off = (start - (window - 1)).clamp(min=0) // ck * ck    # [B]
+        nk = -(-(window + C - 1) // ck) + 1
+        pos = kv_off[:, None] + torch.arange(nk * ck, device=q.device)[None]
+        ring = pos % window
+        blk = torch.gather(tbl, 1, (ring // bs).long()).long()
+        gk, gv = pk[blk, ring % bs], pv[blk, ring % bs]       # [B, nk * ck, Kv, hd]
+        kv_chunk = ck
+    else:
+        gk, gv = gather_blocks(pk, tbl), gather_blocks(pv, tbl)
+        pos = torch.arange(gk.shape[1], device=q.device)[None]
+        kv_off = torch.zeros_like(start)
+    rel = pos - start[:, None]                                  # [B, rows]
     fm = ((rel >= 0) & (rel < C))[..., None, None]
     idx = rel.clamp(0, C - 1).long()[..., None, None].expand(-1, -1, *k_new.shape[2:])
     gk = torch.where(fm, torch.gather(k_new, 1, idx), gk.to(k_new.dtype))
     gv = torch.where(fm, torch.gather(v_new, 1, idx), gv.to(v_new.dtype))
-    return chunked_attention(q, gk, gv, causal=True, softcap=softcap, q_offsets=start,
-                             kv_lengths=start + valid, q_chunk=q_chunk, kv_chunk=kv_chunk)
+    return chunked_attention(q, gk, gv, causal=True, window=window, softcap=softcap,
+                             q_offsets=start, kv_offsets=kv_off,
+                             kv_lengths=start + valid - kv_off, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk)
 
 
 def paged_decode_attention(q, pk, pv, tbl, lengths, *, window: int = 0,
@@ -189,12 +216,16 @@ def paged_decode_attention(q, pk, pv, tbl, lengths, *, window: int = 0,
 
     q [B,1,H,hd]; pools [NB+1, bs, Kv, hd]; ``tbl`` [B, MB] block table;
     ``lengths`` [B] = rows before this step's token.  The gather reproduces
-    the contiguous cache layout of ``MB * bs`` rows, so this is
+    the contiguous cache layout of ``MB * bs`` rows (linear positions, or
+    the ring's when the table spans exactly the window), so this is
     value-identical to :func:`decode_attention` on a contiguous cache of
     that length."""
     from repro_torch.engine.paged import gather_blocks
-    return decode_attention(q, gather_blocks(pk, tbl), gather_blocks(pv, tbl), lengths + 1,
-                            window=window, softcap=softcap)
+    gk, gv = gather_blocks(pk, tbl), gather_blocks(pv, tbl)
+    cap = gk.shape[1]
+    if window and cap == window:                                # ring layout
+        return decode_attention(q, gk, gv, (lengths + 1).clamp(max=cap), softcap=softcap)
+    return decode_attention(q, gk, gv, lengths + 1, window=window, softcap=softcap)
 
 
 def paged_verify_attention(q, pk, pv, k_new, v_new, tbl, start, valid, *, window: int = 0,
@@ -213,15 +244,32 @@ def paged_verify_attention(q, pk, pv, k_new, v_new, tbl, start, valid, *, window
     :func:`paged_prefill_attention` (online softmax over flash tiles), this
     keeps greedy speculative serving token-exact against per-token decode
     on the CPU (``engine/spec.py``).  ``valid`` is unused: rows past it are
-    garbage the caller discards.  Linear tables only (sliding-window rings
-    are not ported)."""
-    if window:
-        raise NotImplementedError("sliding-window (ring) caches are not ported yet")
+    garbage the caller discards.
+
+    A ring table (``MB * bs == window``) has no shared buffer: row ``j``'s
+    decode step would see ring row ``s`` holding the chunk's row ``i = (s
+    - start) % window`` where ``i <= j`` and the older position there
+    otherwise, so each row rebuilds that ring and runs
+    :func:`decode_attention` on it with the effective length ``min(start +
+    j + 1, window)``, the decode step's own call (a chunk is ``n_spec + 1``
+    rows)."""
     from repro_torch.engine.paged import gather_blocks
     B, C, H, hd = q.shape
     Kv = k_new.shape[2]
     cdt = torch.bfloat16 if pk.element_size() == 1 else pk.dtype   # fp8: upcast
     gk, gv = gather_blocks(pk, tbl).to(cdt), gather_blocks(pv, tbl).to(cdt)
+    if window and gk.shape[1] == window:                        # ring layout
+        i_s = (torch.arange(window, device=q.device)[None] - start[:, None]) % window
+        idx = i_s.clamp(max=C - 1).long()[..., None, None].expand(-1, -1, Kv, hd)
+        kf = torch.gather(k_new.to(pk.dtype).to(cdt), 1, idx)   # [B, window, Kv, hd]
+        vf = torch.gather(v_new.to(pv.dtype).to(cdt), 1, idx)
+        out = []
+        for j in range(C):
+            fm = (i_s <= j)[..., None, None]
+            out.append(decode_attention(q[:, j:j + 1], torch.where(fm, kf, gk),
+                                        torch.where(fm, vf, gv),
+                                        (start + j + 1).clamp(max=window), softcap=softcap))
+        return torch.cat(out, dim=1)
     pos = torch.arange(gk.shape[1], device=q.device)[None]
     rel = pos - start[:, None]                                  # [B, cap]
     fm = ((rel >= 0) & (rel < C))[..., None, None]
@@ -231,6 +279,8 @@ def paged_verify_attention(q, pk, pv, k_new, v_new, tbl, start, valid, *, window
     s = _tile_scores(q.reshape(B, C, Kv, H // Kv, hd), kbuf, softcap)  # [B,Kv,G,C,cap]
     qpos = start[:, None] + torch.arange(C, device=q.device)[None]     # [B, C]
     mask = pos[:, None, :] < (qpos + 1)[..., None]                      # [B, C, cap]
+    if window:                                                  # a linear table
+        mask = mask & (pos[:, None, :] > (qpos[..., None] - window))
     p = torch.softmax(torch.where(mask[:, None, None], s, NEG_INF), dim=-1)
     out = torch.einsum("bkgqc,bckh->bqkgh", p.to(vbuf.dtype).float(), vbuf.float())
     return out.reshape(B, C, H, hd).to(q.dtype)

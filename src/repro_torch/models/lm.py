@@ -14,7 +14,11 @@ a tree converted from the reference
 stack the same way under ``cache["prefix"]`` and ``cache["stack"]``.  A
 layer's decode cache is K/V rows for attention and the recurrent state
 (``h``, ``conv_x``, ``conv_bc``, no sequence axis) for Mamba
-(``init_layer_cache``).  Where the reference ``lax.scan``s over the stack,
+(``init_layer_cache``); a sliding-window layer keeps a ring of
+``min(cache_len, sliding_window)`` rows, position ``p`` in row ``p %
+window`` (``_ring_write``), and attends the ring's rows through an
+effective length in place of a window mask.  Where the reference
+``lax.scan``s over the stack,
 the port loops over layers in Python, slicing each layer's views out of the
 stacked leaves; decode caches are updated in place (the torch counterpart
 of the reference's buffer donation).  The paged decode cache
@@ -22,7 +26,10 @@ of the reference's buffer donation).  The paged decode cache
 ``L0``, per-layer K/V block pools ``[n, num_blocks + 1, block_size, Kv,
 hd]`` for attention layers and the per-slot state for Mamba layers
 (``init_layer_cache_paged``), and the allocator state of
-``engine/paged.py`` at the cache's top level, as the reference's does;
+``engine/paged.py`` at the cache's top level, as the reference's does; a
+sliding-window stack pages the ring itself (a table of ``window /
+block_size`` entries, whole from admission on, ``ring=True`` in the
+allocator);
 ``prefill_chunk_paged`` runs one piece of each slot's prompt through that
 cache (chunked prefill, prefix-hit tails; an MoE layer at full capacity, a
 Mamba layer through ``mamba_prefill_chunk``), and ``verify_chunk_paged`` a
@@ -110,11 +117,13 @@ def init_layer(gen, cfg: ModelConfig, dtype, device, spec: LayerSpec) -> dict:
 
 def init_layer_cache(cfg: ModelConfig, spec: LayerSpec, batch: int, cache_len: int,
                      device) -> dict:
-    """Zero decode cache of one layer: K/V rows for attention, the
+    """Zero decode cache of one layer: K/V rows for attention (a ring of
+    ``min(cache_len, sliding_window)`` rows for a sliding window), the
     recurrent state for Mamba (no sequence axis: ``cache_len`` unused)."""
     if spec[0] == "mamba":
         return SSM.init_mamba_cache(cfg, batch, device)
-    shape = (batch, cache_len, cfg.n_kv_heads, cfg.resolved_head_dim)
+    sc = min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
+    shape = (batch, sc, cfg.n_kv_heads, cfg.resolved_head_dim)
     return {"k": torch.zeros(shape, dtype=cache_dtype(), device=device),
             "v": torch.zeros(shape, dtype=cache_dtype(), device=device)}
 
@@ -165,17 +174,35 @@ def _init_stack(gen, cfg: ModelConfig, n: int, dtype, device, spec: LayerSpec) -
     return {"L0": stack}
 
 
+def _ring_write(cache_k, cache_v, k_new, v_new, lengths):
+    """Write one new kv [B,1,Kv,hd] into ring caches at row ``lengths %
+    capacity``, in place."""
+    bidx = torch.arange(k_new.shape[0], device=cache_k.device)
+    slot = (lengths % cache_k.shape[1]).long()
+    cache_k[bidx, slot] = k_new[:, 0].to(cache_k.dtype)
+    cache_v[bidx, slot] = v_new[:, 0].to(cache_v.dtype)
+
+
 def _attn_decode(p: dict, x, cache: dict, lengths, cfg: ModelConfig):
     """Self-attn decode for one layer: the new K/V lands in the layer's
-    cache views in place."""
+    cache views in place.  A cache of exactly ``sliding_window`` rows is a
+    ring: the row goes to ``lengths % window`` and attention reads the
+    ``min(lengths + 1, window)`` rows written (in ring order, the window
+    itself); a linear cache under a window masks the rows before it."""
     B = x.shape[0]
     q, k, v = A.qkv_proj(p, x, cfg)
     if cfg.rope_theta > 0:
         cos, sin = rope_cos_sin(lengths[:, None], cfg.resolved_head_dim, cfg.rope_theta)
         q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    A.write_cache(cache["k"], cache["v"], k, v, lengths)
-    out = A.decode_attention(q, cache["k"], cache["v"], lengths + 1,
-                             window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
+    cap = cache["k"].shape[1]
+    if cfg.sliding_window and cap == cfg.sliding_window:
+        _ring_write(cache["k"], cache["v"], k, v, lengths)
+        out = A.decode_attention(q, cache["k"], cache["v"], (lengths + 1).clamp(max=cap),
+                                 softcap=cfg.attn_logit_softcap)
+    else:
+        A.write_cache(cache["k"], cache["v"], k, v, lengths)
+        out = A.decode_attention(q, cache["k"], cache["v"], lengths + 1,
+                                 window=cfg.sliding_window, softcap=cfg.attn_logit_softcap)
     return qlinear.matmul(out.reshape(B, 1, -1), p["wo"])
 
 
@@ -335,8 +362,10 @@ def apply_layer_prefill(p: dict, x, cache: dict, cfg: ModelConfig, spec: LayerSp
                         tiles=(0, 0)):
     """Pre-norm residual layer over a whole prompt; writes the layer's
     decode cache (views) in place: K/V rows [B, cache_len, Kv, hd] for
-    attention, the state after the prompt's last row for Mamba.  ``tiles``
-    are the flash tiles ``(q_chunk, kv_chunk)``, 0 for the defaults."""
+    attention (a ring keeps the prompt's last ``min(S, window)`` rows, row
+    ``p`` at ``p % window``), the state after the prompt's last row for
+    Mamba.  ``tiles`` are the flash tiles ``(q_chunk, kv_chunk)``, 0 for
+    the defaults."""
     B, S, _ = x.shape
     h = apply_norm(p["ln1"], x, cfg.norm_eps)
     if spec[0] == "mamba":
@@ -354,8 +383,14 @@ def apply_layer_prefill(p: dict, x, cache: dict, cfg: ModelConfig, spec: LayerSp
                               kv_chunk=tiles[1])
     x = x + qlinear.matmul(out.reshape(B, S, -1), p["attn"]["wo"])
     sc = cache["k"].shape[1]
-    cache["k"][:, :S] = k[:, :sc].to(cache["k"].dtype)
-    cache["v"][:, :S] = v[:, :sc].to(cache["v"].dtype)
+    if cfg.sliding_window and sc == cfg.sliding_window:
+        n = min(S, sc)
+        slots = torch.arange(S - n, S, device=x.device) % sc
+        cache["k"][:, slots] = k[:, S - n:].to(cache["k"].dtype)
+        cache["v"][:, slots] = v[:, S - n:].to(cache["v"].dtype)
+    else:
+        cache["k"][:, :S] = k[:, :sc].to(cache["k"].dtype)
+        cache["v"][:, :S] = v[:, :sc].to(cache["v"].dtype)
     return _ffn(p, x, cfg, spec)
 
 
@@ -441,9 +476,6 @@ class Model:
     run every group.  ``loss_fn`` trains the dense and SSM families."""
 
     def __init__(self, cfg: ModelConfig, device=None):
-        if cfg.sliding_window:
-            raise NotImplementedError("sliding-window (ring) caches are not ported yet "
-                                      "(ROADMAP Queue A 5)")
         prefix_specs, n_prefix, specs, n_periods = layer_plan(cfg)
         self.spec = specs[0]
         # (subtree, layer spec, layers) in the order a forward runs them
@@ -542,8 +574,23 @@ class Model:
         block_size, Kv, hd]``, the last block the trash sink; a Mamba layer's
         per-slot state), per-slot ``lengths``, and the allocator state of
         ``engine/paged.py`` (one table of ``ceil(cache_len / block_size)``
-        entries per slot, shared by every attention layer)."""
+        entries per slot, shared by every attention layer).  A
+        sliding-window stack pages the ring: ``cache_len`` must cover the
+        window and ``block_size`` divide it (ring rows ``pos % window``
+        would straddle the block grid otherwise), and the table has
+        ``window / block_size`` entries."""
         from repro_torch.engine.paged import blocks_for, init_block_state
+        window = self.cfg.sliding_window
+        if window:
+            if cache_len < window:
+                raise ValueError(f"paged SWA cache needs cache_len >= sliding_window "
+                                 f"({cache_len} < {window})")
+            if window % block_size:
+                raise ValueError(f"block_size {block_size} must divide the sliding window "
+                                 f"{window} (ring positions are block-mapped)")
+            mb = window // block_size
+        else:
+            mb = blocks_for(cache_len, block_size)
         cache = {}
         for name, spec, n in self.groups:
             one = init_layer_cache_paged(self.cfg, spec, batch, num_blocks, block_size,
@@ -553,9 +600,15 @@ class Model:
                                   for k, v in one.items()}}
             del one
         cache["lengths"] = torch.zeros(batch, dtype=torch.int32, device=self.device)
-        cache.update(init_block_state(batch, blocks_for(cache_len, block_size), num_blocks,
-                                      self.device))
+        cache.update(init_block_state(batch, mb, num_blocks, self.device))
         return cache
+
+    def _ring(self, cache: dict) -> bool:
+        """Whether the paged table spans exactly the sliding window: the
+        ring layout (position ``p`` at table row ``p % window``)."""
+        bs = cache["stack"]["L0"]["pk"].shape[2]
+        return bool(self.cfg.sliding_window) \
+            and cache["tbl"].shape[1] * bs == self.cfg.sliding_window
 
     def _run_paged(self, layer_fn, params: dict, x, cache: dict, pctx: dict):
         """``x`` through every group's layers in order (the dense prefix
@@ -576,7 +629,8 @@ class Model:
         if self.spec[0] == "attn":
             bs = cache["stack"]["L0"]["pk"].shape[2]
             wblk, woff = span_targets({k: cache[k] for k in BSTATE_KEYS}, start, valid, width,
-                                      bs, cache["tbl"].shape[1] * bs, False, shared_until)
+                                      bs, cache["tbl"].shape[1] * bs, self._ring(cache),
+                                      shared_until)
             pctx.update(tbl=cache["tbl"], wblk=wblk.long(), woff=woff.long())
         return pctx
 
@@ -601,8 +655,8 @@ class Model:
         if self.spec[0] == "attn":
             bs = cache["stack"]["L0"]["pk"].shape[2]
             new, wblk, woff, cow_src = alloc_step({k: cache[k] for k in BSTATE_KEYS}, lengths,
-                                                  bs, cache["tbl"].shape[1] * bs, ring=False,
-                                                  cow=cow)
+                                                  bs, cache["tbl"].shape[1] * bs,
+                                                  ring=self._ring(cache), cow=cow)
             pctx.update(tbl=new["tbl"], wblk=wblk.long(), woff=woff.long())
             if cow:
                 pctx["cow_src"] = cow_src.long()

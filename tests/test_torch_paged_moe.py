@@ -89,6 +89,43 @@ def contiguous(moe):
         PROMPTS, gen_tokens=6)
 
 
+@pytest.fixture(scope="module")
+def served(moe):
+    """Each mode's serves of ``PROMPTS`` (6 tokens each), once per module:
+    ``served(mode)`` -> [(outputs, stats, blocks the index holds after)]
+    for one serve, or a cold and a warm one of a prefix-cached engine.  The
+    reference comparison and the in-port one read the same serves."""
+    model, params, draft = moe[3], moe[4], moe[5]
+    done = {}
+
+    def get(mode):
+        if mode not in done:
+            kw = dict(slots=2, cache_len=CACHE_LEN, k_steps=3, block_size=8,
+                      check_invariants=True, **MODES[mode])
+            eng = Engine(model, params, draft_params=draft if kw.get("n_spec") else None, **kw)
+            done[mode] = [(*eng.serve(PROMPTS, gen_tokens=6, return_stats=True),
+                           set(eng._hold_blocks))
+                          for _ in range(2 if kw.get("prefix_cache") else 1)]
+        return done[mode]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def held_steps(moe):
+    """``_held`` of each (prompt, reference continuation), once per module."""
+    model, params = moe[3], moe[4]
+    done = {}
+
+    def get(prompt, continuation):
+        key = (bytes(prompt), tuple(continuation))
+        if key not in done:
+            done[key] = _held(model, params, prompt, continuation)
+        return done[key]
+
+    return get
+
+
 def _held(model, params, prompt, continuation) -> int:
     """How many leading greedy steps of ``continuation`` (teacher-forced
     through the port's model) have a top-2 logit gap above ``TOL`` of
@@ -144,26 +181,23 @@ def test_cow_copy_blocks_copies_every_attention_pool(moe):
 # ``test_engine_modes_equal_contiguous``, which matches the reference's).
 # Each reference engine compiles for seconds.
 @pytest.mark.parametrize("mode", ["prefix", "spec"])
-def test_engine_modes_match_reference_engine(moe, mode):
+def test_engine_modes_match_reference_engine(moe, served, held_steps, mode):
     """Each paged engine mode's greedy tokens equal the reference engine's
     (the same mode, its AbsMax draft for speculation) up to each request's
     first step whose margin is within the bf16 rule; a prefix-cached engine
     serves twice, and its warm serve's prefix hits, prompt tokens prefilled
     and copies equal the reference's, with hits."""
-    ref_model, rp, ref_draft, model, params, draft = moe
+    ref_model, rp, ref_draft = moe[:3]
     kw = dict(slots=2, cache_len=CACHE_LEN, k_steps=3, block_size=8, **MODES[mode])
     spec = kw.get("n_spec")
     ref_eng = RefEngine(ref_model, rp, draft_params=ref_draft if spec else None, **kw)
-    eng = Engine(model, params, draft_params=draft if spec else None, check_invariants=True,
-                 **kw)
     held = 0
-    for run in ("cold", "warm") if kw.get("prefix_cache") else ("cold",):
+    for run, (outs, stats, _) in zip(("cold", "warm"), served(mode)):
         ref_out, rs = ref_eng.serve([jnp.asarray(p) for p in PROMPTS], gen_tokens=6,
                                     return_stats=True)
-        outs, stats = eng.serve(PROMPTS, gen_tokens=6, return_stats=True)
         for p, out, ref in zip(PROMPTS, outs, ref_out):
             ref = list(map(int, ref))
-            n = _held(model, params, p, ref)
+            n = held_steps(p, ref)
             assert out[:n] == ref[:n], run
             held += n if run == "cold" else 0
         assert stats["counters"]["tokens"] == rs["counters"]["tokens"]
@@ -177,19 +211,15 @@ def test_engine_modes_match_reference_engine(moe, mode):
 
 
 @pytest.mark.parametrize("mode", list(MODES))
-def test_engine_modes_equal_contiguous(moe, contiguous, mode):
+def test_engine_modes_equal_contiguous(contiguous, served, mode):
     """Inside the port every mode's tokens equal the contiguous engine's,
     token for token: paged, chunked (== one-shot), prefix-cached cold and
     warm (warm == cold, with hits and fewer prompt tokens prefilled), and
     speculative (== non-speculative; drafted == accepted + rejected, some
     accepted)."""
-    model, params, draft = moe[3], moe[4], moe[5]
-    kw = dict(slots=2, cache_len=CACHE_LEN, k_steps=3, block_size=8, check_invariants=True,
-              **MODES[mode])
-    eng = Engine(model, params, draft_params=draft if kw.get("n_spec") else None, **kw)
+    kw = MODES[mode]
     runs = []
-    for _ in range(2 if kw.get("prefix_cache") else 1):
-        outs, stats = eng.serve(PROMPTS, gen_tokens=6, return_stats=True)
+    for outs, stats, _ in served(mode):
         assert outs == contiguous
         runs.append(stats)
     if kw.get("prefix_cache"):

@@ -109,6 +109,28 @@ def contiguous(bf16):
         PROMPTS, gen_tokens=6)
 
 
+@pytest.fixture(scope="module")
+def served(bf16):
+    """Each mode's serves of ``PROMPTS`` (6 tokens each), once per module:
+    ``served(mode)`` -> [(outputs, stats, blocks the index holds after)]
+    for one serve, or a cold and a warm one of a prefix-cached engine.  The
+    reference comparison reads the first, the in-port one all."""
+    model, params, draft = bf16[3], bf16[4], bf16[5]
+    done = {}
+
+    def get(mode):
+        if mode not in done:
+            kw = dict(slots=2, cache_len=CACHE_LEN, k_steps=3, block_size=8,
+                      check_invariants=True, **MODES[mode])
+            eng = Engine(model, params, draft_params=draft if kw.get("n_spec") else None, **kw)
+            done[mode] = [(*eng.serve(PROMPTS, gen_tokens=6, return_stats=True),
+                           set(eng._hold_blocks))
+                          for _ in range(2 if kw.get("prefix_cache") else 1)]
+        return done[mode]
+
+    return get
+
+
 def _np(x):
     if isinstance(x, torch.Tensor):
         return x.float().numpy()
@@ -282,19 +304,17 @@ def test_chunked_prefill_on_the_grid_equals_one_shot(bf16):
 # ``test_engine_modes_equal_contiguous``, which matches the reference's).
 # Each reference engine compiles for seconds.
 @pytest.mark.parametrize("mode", ["prefix", "spec"])
-def test_engine_modes_match_reference_engine(bf16, mode):
+def test_engine_modes_match_reference_engine(bf16, served, mode):
     """Each paged engine mode's greedy tokens equal the reference engine's
     (the same mode, its AbsMax draft for speculation) up to each request's
     first step whose top-2 margin is within the bf16 rule; the token
     counters agree, and the prefix-cached modes count no hit in either."""
-    ref_model, rp, ref_draft, model, params, draft = bf16
+    ref_model, rp, ref_draft, model, params, _ = bf16
     kw = dict(slots=2, cache_len=CACHE_LEN, k_steps=3, block_size=8, **MODES[mode])
     ref_out, rs = RefEngine(ref_model, rp, draft_params=ref_draft if kw.get("n_spec") else None,
                             **kw).serve([jnp.asarray(p) for p in PROMPTS], gen_tokens=6,
                                         return_stats=True)
-    outs, stats = Engine(model, params, draft_params=draft if kw.get("n_spec") else None,
-                         check_invariants=True, **kw).serve(PROMPTS, gen_tokens=6,
-                                                            return_stats=True)
+    outs, stats, _ = served(mode)[0]
     held = 0
     for p, out, ref in zip(PROMPTS, outs, ref_out):
         ref = list(map(int, ref))
@@ -308,23 +328,19 @@ def test_engine_modes_match_reference_engine(bf16, mode):
 
 
 @pytest.mark.parametrize("mode", list(MODES))
-def test_engine_modes_equal_contiguous(bf16, contiguous, mode):
+def test_engine_modes_equal_contiguous(contiguous, served, mode):
     """Inside the port every mode's tokens equal the contiguous engine's,
     token for token, with conservation checked after every admission and
     dispatch; a prefix-cached engine serves twice (cold, then warm from its
     kept cache) with zero hits, every prompt token prefilled both times; a
     speculative one accepts some drafts and counts drafted == accepted +
     rejected."""
-    model, params, draft = bf16[3], bf16[4], bf16[5]
-    kw = dict(slots=2, cache_len=CACHE_LEN, k_steps=3, block_size=8, check_invariants=True,
-              **MODES[mode])
-    eng = Engine(model, params, draft_params=draft if kw.get("n_spec") else None, **kw)
-    for _ in range(2 if kw.get("prefix_cache") else 1):
-        outs, stats = eng.serve(PROMPTS, gen_tokens=6, return_stats=True)
+    kw = MODES[mode]
+    for outs, stats, holds in served(mode):
         assert outs == contiguous
         if kw.get("prefix_cache"):
             assert stats["prefix_hits"] == stats["counters"]["prefix_hit_tokens"] == 0
-            assert stats["prefill_tokens"] == sum(LENS) and not eng._hold_blocks
+            assert stats["prefill_tokens"] == sum(LENS) and not holds
     if kw.get("n_spec"):
         c = stats["counters"]
         assert c["drafted"] == c["accepted"] + c["rejected"] and 0 < c["accepted"]

@@ -278,6 +278,19 @@ def test_cli_flag_checks_equal_reference(monkeypatch, extra):
     assert str(port_exit.value).startswith("--")
 
 
+def test_cli_refuses_blocks_that_do_not_divide_the_sliding_window(monkeypatch):
+    """``--arch mixtral-8x22b --reduced --paged --block-size 24``: the cache
+    (16 + 4 + 8 rows) covers the reduced window of 16, so the block rule is
+    the refusal that fires, with the engine's message, before any weights
+    are made."""
+    built = []
+    monkeypatch.setattr(cli, "build_model", lambda *a, **k: built.append(a))
+    with pytest.raises(SystemExit, match="block_size 24 must divide the sliding window 16"):
+        cli.main(["--arch", "mixtral-8x22b", "--reduced", "--device", "cpu", "--paged",
+                  "--block-size", "24", "--prompt-len", "16", "--gen", "4"])
+    assert not built
+
+
 def test_cli_sharded_serving_exits_with_a_message():
     with pytest.raises(SystemExit, match="sharded serving is not ported"):
         cli.main(SMALL + ["--mesh", "2"])

@@ -232,7 +232,10 @@ def test_alloc_span_equals_reference(case):
 
 def test_paged_verify_attention_matches_reference():
     """Three slots, blocks of 4, a chunk of 3 rows starting mid-block, at
-    the table's end and in an empty slot; float32 pools."""
+    the table's end and in an empty slot; float32 pools.  Also under a
+    sliding window: of 8 rows over the 12-row linear table (a window
+    mask), and of 12 rows, the table's span (a ring: each row rebuilds the
+    ring its decode step would read)."""
     rng = np.random.default_rng(4)
     NB, bs, Kv, H, hd, B, C = 8, 4, 2, 4, 8, 3, 3
     pk = rng.standard_normal((NB + 1, bs, Kv, hd)).astype(np.float32)
@@ -247,9 +250,12 @@ def test_paged_verify_attention_matches_reference():
     port = TA.paged_verify_attention(*map(torch.from_numpy, (q, pk, pv, k_new, v_new, tbl,
                                                              start, valid)))
     np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        TA.paged_verify_attention(*map(torch.from_numpy, (q, pk, pv, k_new, v_new, tbl, start,
-                                                          valid)), window=8)
+    for window in (8, 12):
+        ref = RA.paged_verify_attention(*map(jnp.asarray, (q, pk, pv, k_new, v_new, tbl, start,
+                                                           valid)), sliding_window=window)
+        port = TA.paged_verify_attention(*map(torch.from_numpy, (q, pk, pv, k_new, v_new, tbl,
+                                                                 start, valid)), window=window)
+        np.testing.assert_allclose(port.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-6)
 
 
 def _admitted_caches(ref_model, model, B, cache_len, bs):
