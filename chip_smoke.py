@@ -195,6 +195,20 @@ Phases:
      at an expert's [6144,16384]; and a small float32 Mixtral-shaped model
      with a window of 16 on fp32 activations, card against CPU over 40
      steps (``swa_small_agreement``);
+  7n. MoE training (``moe_train_phase``, after 7m): Mixtral 8x22B at full
+     width cut to 1 of its 56 layers (2.91 B parameters), bf16 weights
+     from a seed, SFT'd as 7h (``sft``: 8 AdamW steps of 4 x 512 mixed
+     tokens, remat full, one step under the sync debug mode "error"; the
+     router's auxiliary loss above 0 in every step, the loss falling,
+     dropped assignments counted), then DAQ-quantized against its base
+     (the sweep and the quantizer launch), SmoothQuant- and AWQ-quantized
+     with calibration on the card, the five trees scored
+     (``eval_scores``), the DAQ tree serving 8 requests of 128 tokens x
+     64 (launches asserted: wgmma 4 a prefill call and 5 a scoring
+     forward, decode 5 a step + 1); then a small Mixtral-shaped float32
+     model trained 3 steps on the card and on the CPU, the card routing
+     on the CPU's router logits, and remat full == none bit for bit on
+     the card (``train_agreement``);
   7l. quant block 64 (``block64_phase``, after 7e): phase 4's weights
      DAQ-quantized at block 64 and served phase 6's 8 requests through
      ``Engine(slots=8, k_steps=8)``: the sweep's and the quantizer's
@@ -270,6 +284,10 @@ BREAKDOWN_STEPS = 4
 # steps of 4 x 512 tokens; the card-vs-CPU check takes 3 steps
 TRAIN_LAYERS, TRAIN_STEPS, TRAIN_BATCH, TRAIN_CHECK_STEPS = 8, 8, (4, 512), 3
 TRAIN_LR = 1e-4
+# the MoE train phase: Mixtral 8x22B at full width, 1 of its 56 layers (2.91 B
+# parameters: its training state, 16 bytes a parameter, ~47 GB; ~90 GB at 2
+# layers), the train phase's steps and batches
+MOE_TRAIN_LAYERS = 1
 # the study phase's (base, SFT) steps: the reference's full budget
 STUDY_STEPS = (600, 350)
 # the SSM phase: Mamba2-780M's 8 requests, four lengths above its SSD chunk
@@ -2260,37 +2278,76 @@ def cli_phase(torch) -> None:
 # Phase 7h: train -> quantize -> serve at full width; phase 7i: the study
 # ---------------------------------------------------------------------------
 
-def train_agreement(torch, seed: int) -> None:
-    """A 2-layer float32 GLM-shaped model (width 256) takes ``TRAIN_CHECK_STEPS``
-    AdamW steps on the card and on the CPU from one init on the same batches
-    (``train_batch`` draws on the host).  Its parameters are float32 but its
-    activations bf16 (``models/common.py::ACT_DTYPE``), so the two differ by
-    bf16 rounding of each product, as the CPU tests' port-vs-reference
-    steps do: each step's loss within 1e-3 relative, the whole tree's
-    update and each weight matrix's within 0.99 cosine of the CPU's
-    (biases and norm scales count in the whole only: AdamW normalizes
-    their small, noisy gradients into full-size steps)."""
+def routing_tape(torch, tape: list, agree: list | None = None):
+    """Wrap ``repro_torch.models.moe.top_k_routing``.  With ``agree`` None,
+    each call appends its fp32 router logits (on the CPU) to ``tape``;
+    else each call routes on the taped logits of the same call, plus ``l -
+    l.detach()`` (the taped values bit for bit, the gradient through this
+    run's own logits), and appends to ``agree`` the share of tokens (a
+    device tensor) whose experts this run's own logits choose the same.
+    Returns the function that restores the original."""
+    from repro_torch.models import moe
+    fn, calls = moe.top_k_routing, iter(tape)
+
+    def wrapped(logits, top_k, capacity):
+        if agree is None:
+            tape.append(logits.detach().float().cpu())
+            return fn(logits, top_k, capacity)
+        own = fn(logits.detach(), top_k, capacity)[0]
+        out = fn(next(calls).to(logits.device) + (logits - logits.detach()), top_k, capacity)
+        agree.append((own.amax(-1) == out[0].amax(-1)).all(-1).float().mean())
+        return out
+
+    moe.top_k_routing = wrapped
+    return lambda: setattr(moe, "top_k_routing", fn)
+
+
+def train_agreement(torch, seed: int, cfg=None, label: str = "train agreement") -> None:
+    """A 2-layer float32 model (by default GLM-shaped, width 256; else
+    ``cfg``) takes ``TRAIN_CHECK_STEPS`` AdamW steps on the card and on the
+    CPU from one init on the same batches (``train_batch`` draws on the
+    host).  Its parameters are float32 but its activations bf16
+    (``models/common.py::ACT_DTYPE``), so the two differ by bf16 rounding of
+    each product, as the CPU tests' port-vs-reference steps do: each step's
+    loss within 1e-3 relative, the whole tree's update and each weight
+    matrix's within 0.99 cosine of the CPU's (biases and norm scales count
+    in the whole only: AdamW normalizes their small, noisy gradients into
+    full-size steps).
+
+    An MoE model's bf16 noise flips a few top-k choices between the devices
+    (a flip sends a token's gradient to another expert), so the card routes
+    on the CPU's router logits of each call (``routing_tape``; the share of
+    tokens its own logits route the same is printed), as the CPU tests
+    replay the reference's; and on the card, with its own routing, remat
+    ``full`` must give the loss bits and every gradient bit of remat
+    ``none`` (the recomputed router and ``argmax`` are the forward's)."""
     from repro_torch.configs import TrainConfig, get_arch
     from repro_torch.core.policy import tree_leaves_with_path, tree_map
     from repro_torch.data import LanguageSpec, train_batch
     from repro_torch.launch.steps import init_train_state, make_train_step
     from repro_torch.models import build_model
-    cfg = dataclasses.replace(get_arch("glm4-9b"), n_layers=2, d_model=256, n_heads=2,
-                              n_kv_heads=1, head_dim=128, d_ff=512, vocab_size=1024,
-                              dtype="float32")
+    cfg = cfg or dataclasses.replace(get_arch("glm4-9b"), n_layers=2, d_model=256, n_heads=2,
+                                     n_kv_heads=1, head_dim=128, d_ff=512, vocab_size=1024,
+                                     dtype="float32")
+    moe = cfg.family == "moe"
     tc = TrainConfig(learning_rate=1e-3, warmup_steps=1, total_steps=TRAIN_CHECK_STEPS)
     spec = LanguageSpec(vocab=cfg.vocab_size)
-    losses, states = {}, {}
+    losses, states, tape, agree = {}, {}, [], []
     init = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(seed + 3))
     for dev in ("cpu", "cuda"):
         model = build_model(cfg, device=dev)
         state = init_train_state(model, tc, None,
                                  tree_map(lambda t: t.to(model.device, copy=True), init))
         step = make_train_step(model, tc)
+        restore = routing_tape(torch, tape, None if dev == "cpu" else agree) if moe \
+            else (lambda: None)
         losses[dev] = []
-        for t in range(TRAIN_CHECK_STEPS):
-            state, m = step(state, train_batch(spec, 0, t, 4, 64, device=model.device))
-            losses[dev].append(float(m["loss"]))
+        try:
+            for t in range(TRAIN_CHECK_STEPS):
+                state, m = step(state, train_batch(spec, 0, t, 4, 64, device=model.device))
+                losses[dev].append(float(m["loss"]))
+        finally:
+            restore()
         states[dev] = tree_map(lambda t: t.cpu(), state["params"])
     worst_loss = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
     cosine = lambda a, b: float(a @ b / a.norm() / b.norm())
@@ -2301,67 +2358,76 @@ def train_agreement(torch, seed: int) -> None:
         dc, dg = (c - p0).double().flatten(), (g - p0).double().flatten()
         whole[0].append(dc)
         whole[1].append(dg)
-        if path[-1].startswith("w") or path[-1] == "embed":
+        if path[-1].startswith("w") or path[-1] in ("embed", "router"):
             cosines["/".join(path)] = cosine(dc, dg)
     worst = min(cosines, key=cosines.get)
     total = cosine(torch.cat(whole[0]), torch.cat(whole[1]))
-    log(f"train agreement (2 layers, width 256, float32 parameters, {TRAIN_CHECK_STEPS} "
+    shape = (f"{cfg.n_layers} layers of {cfg.n_experts} experts top-{cfg.top_k}, window "
+             f"{cfg.sliding_window}, " if moe else f"{cfg.n_layers} layers, ")
+    routed = (f"; the card routed on the CPU's logits ({len(tape)} routing calls; its own "
+              f"would route {min(float(a) for a in agree):.4f} of a call's tokens the same at "
+              f"the least)" if moe else "")
+    log(f"{label} ({shape}width {cfg.d_model}, float32 parameters, {TRAIN_CHECK_STEPS} "
         f"steps, card vs CPU): losses {[round(x, 6) for x in losses['cuda']]} vs "
         f"{[round(x, 6) for x in losses['cpu']]} (worst {worst_loss:.3g} relative, "
         f"tolerance 1e-3); update cosine {total:.6f} over the tree (tolerance 0.99), "
-        f"least of a weight matrix {cosines[worst]:.6f} ({worst}; tolerance 0.99)")
+        f"least of a weight matrix {cosines[worst]:.6f} ({worst}; tolerance 0.99){routed}")
     if not worst_loss <= 1e-3 or not total >= 0.99 or not cosines[worst] >= 0.99:
-        raise AssertionError("train agreement: the card's and the CPU's training differ")
+        raise AssertionError(f"{label}: the card's and the CPU's training differ")
+    if moe:
+        remat_bits(torch, cfg, init, train_batch(spec, 0, 0, 4, 64, device=model.device), label)
 
 
-def train_phase(torch, seed: int, prompts) -> None:
-    """Phase 7h: GLM-4-9B at full width cut to ``TRAIN_LAYERS`` layers (its
-    training state at 40 layers, about 150 GB, does not fit one card):
-    bf16 weights from a seeded generator (the base), SFT'd for
-    ``TRAIN_STEPS`` AdamW steps (fp32 master and moments, remat ``full``)
-    on ``"mixed"`` batches of 4 x 512 tokens of a 4,096-token language
-    (``train_batch``); then the optimizer state is freed, the SFT'd tree is
-    DAQ-quantized against the base (``QuantConfig(use_fused_kernel=True)``,
-    storage mode: the sweep and the quantizer launch) and served phase 6's
-    8 requests through the engine.  Kernel counts are zeroed just before
-    the quantize and read after the serve.
-
-    Prints each step's loss (finite, the last below the first), train
-    tokens/s, peak GB, one step's host and device-busy ms, idle share and
-    launches (``device_breakdown`` over steps 6-8), the optimizer update's
-    share of a step (CUDA events around ``adamw_update``); one step (step
-    3) runs under ``torch.cuda.set_sync_debug_mode("error")``.  Then
-    quantize seconds, the real SFT delta's global sign rate and cosine,
-    serve tok/s, and the launch formulas of the quantize and the serve at
-    ``TRAIN_LAYERS`` layers.  Ends with ``train_agreement``."""
-    import repro_torch.launch.steps as steps_mod
-    from repro_torch.configs import QuantConfig, TrainConfig, get_arch
-    from repro_torch.data import train_batch
-    from repro_torch.engine import Engine
-    from repro_torch.kernels._lib import KERNELS
-    from repro_torch.kernels.scale_search.kernel import sweep_plan
-    from repro_torch.launch.train import default_language
+def remat_bits(torch, cfg, init, batch, label: str) -> None:
+    """On the card, the loss and every gradient of ``cfg``'s model from
+    ``init`` under remat ``full`` bit-equal to remat ``none``, each routing
+    on its own logits; a mismatch counts the tokens routed otherwise (the
+    two forwards', and ``full``'s backward recompute against its forward)."""
+    from repro_torch.core.policy import tree_leaves_with_path
+    from repro_torch.launch.steps import _unflatten
     from repro_torch.models import build_model
-    from repro_torch.quantize import quantize
+    model = build_model(cfg, device="cuda")
+    out = {}
+    for remat in ("none", "full"):
+        leaves = [p.detach().to(model.device, copy=True).requires_grad_(True)
+                  for _, p in tree_leaves_with_path(init)]
+        routes: list = []
+        restore = routing_recorder(torch, routes, keep=True)
+        try:
+            loss, _ = model.loss_fn(_unflatten(init, leaves), batch, remat=remat)
+            grads = torch.autograd.grad(loss, leaves)
+        finally:
+            restore()
+        out[remat] = (loss.detach(), grads, [d for d, _ in routes])
+    (l0, g0, r0), (l1, g1, r1) = out["none"], out["full"]
+    equal = bool(torch.equal(l0, l1)) and all(torch.equal(a, b) for a, b in zip(g0, g1))
+    n = len(r0)
+    pairs = list(zip(r0, r1[:n])) + list(zip(r1[:n], r1[n:][::-1]))
+    moved = sum(int((a.amax(-1) != b.amax(-1)).any(-1).sum()) for a, b in pairs)
+    log(f"{label}, remat on the card: loss {float(l0):.9g} (none) vs {float(l1):.9g} (full); "
+        f"{len(g0)} gradients {'bit-equal' if equal else 'differ'}; {n} / {len(r1)} routing "
+        f"calls (full recomputes each in the backward), {moved} tokens routed otherwise")
+    if not equal or moved or len(r1) != 2 * n:
+        raise AssertionError(f"{label}: remat full differs from none on the card ({moved} "
+                             f"routing decisions moved)")
 
-    cfg = dataclasses.replace(get_arch("glm4-9b"), n_layers=TRAIN_LAYERS)
-    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=2, total_steps=TRAIN_STEPS,
-                     remat="full")
-    model = build_model(cfg)
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    params = model.init(torch.Generator(device=model.device).manual_seed(seed + 5))
-    base = clone_tree(params)
-    state = steps_mod.init_train_state(model, tc, None, params)
-    spec = default_language(cfg, tc.seed + 100)
+
+def sft(torch, model, tc, state, spec, label: str):
+    """``TRAIN_STEPS`` AdamW steps of ``state`` on ``"mixed"`` batches of
+    ``TRAIN_BATCH`` tokens of ``spec`` (``train_batch``), one step (step 3)
+    under ``torch.cuda.set_sync_debug_mode("error")``: no host sync inside
+    a step.  Prints each step's loss (and, for an MoE model, its auxiliary
+    loss), train tokens/s, peak GB, one step's host and device-busy ms,
+    idle share and launches (``device_breakdown`` over the last three
+    steps) and the optimizer update's share (CUDA events around
+    ``adamw_update``); asserts finite losses, the last below the first.
+    Returns ``(state, metrics)``, ``metrics`` each step's as floats."""
+    import repro_torch.launch.steps as steps_mod
+    from repro_torch.data import train_batch
+
     step_fn = steps_mod.make_train_step(model, tc)
     B, S = TRAIN_BATCH
-    log(f"train phase: {cfg.name} {cfg.n_layers} layers at full width "
-        f"({cfg.param_count() / 1e9:.3f} B params), {TRAIN_STEPS} steps of {B} x {S} tokens "
-        f"(mixed corpus, LanguageSpec(vocab={spec.vocab})), remat full, AdamW fp32 master "
-        f"and moments; state {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
-
-    losses, update_ms, step_ms = [], [], []
+    metrics, update_ms, step_ms = [], [], []
     real_update = steps_mod.adamw_update
 
     def timed_update(*a):
@@ -2385,8 +2451,7 @@ def train_phase(torch, seed: int, prompts) -> None:
             torch.cuda.set_sync_debug_mode(0)
         ev[1].record()
         step_ms.append(ev)
-        losses.append(m["loss"])
-        return m
+        metrics.append(m)
 
     steps_mod.adamw_update = timed_update
     try:
@@ -2402,16 +2467,19 @@ def train_phase(torch, seed: int, prompts) -> None:
             one_step(next(it))
             torch.cuda.synchronize()
 
-        br = device_breakdown(torch, f"train step ({B} x {S} tokens, {TRAIN_LAYERS} layers)",
-                              run, 1, "step", top=10)
+        br = device_breakdown(torch, f"{label} step ({B} x {S} tokens, {model.cfg.n_layers} "
+                              f"layers)", run, 1, "step", top=10)
     finally:
         steps_mod.adamw_update = real_update
     peak = torch.cuda.max_memory_allocated() / 1e9
-    losses = [float(x) for x in losses]
+    metrics = [{k: float(v) for k, v in m.items()} for m in metrics]
+    losses = [m["loss"] for m in metrics]
     upd = [a.elapsed_time(b) for a, b in update_ms]
     whole = [a.elapsed_time(b) for a, b in step_ms]
     share = sum(upd[1:]) / sum(whole[1:])
-    log(f"train phase: losses {[round(x, 4) for x in losses]}; steps 1-{TRAIN_STEPS - 3} in "
+    aux = (f"; aux losses {[round(m['aux_loss'], 7) for m in metrics]}"
+           if model.cfg.family == "moe" else "")
+    log(f"{label}: losses {[round(x, 4) for x in losses]}{aux}; steps 1-{TRAIN_STEPS - 3} in "
         f"{first_s:.2f} s ({(TRAIN_STEPS - 3) * B * S / first_s:.0f} tok/s, the first step's "
         f"warm-up included); a step {br['host_ms']:.1f} ms on the host clock = "
         f"{B * S / br['host_ms'] * 1e3:.0f} train tok/s; event-timed steps "
@@ -2419,7 +2487,52 @@ def train_phase(torch, seed: int, prompts) -> None:
         f"{[round(x, 1) for x in upd]} ms ({share:.3f} of steps 2-{TRAIN_STEPS}); peak "
         f"{peak:.2f} GB; step 3 ran under set_sync_debug_mode('error')")
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"train phase: losses {losses}")
+        raise AssertionError(f"{label}: losses {losses}")
+    return state, metrics
+
+
+def train_phase(torch, seed: int, prompts) -> None:
+    """Phase 7h: GLM-4-9B at full width cut to ``TRAIN_LAYERS`` layers (its
+    training state at 40 layers, about 150 GB, does not fit one card):
+    bf16 weights from a seeded generator (the base), SFT'd for
+    ``TRAIN_STEPS`` AdamW steps (fp32 master and moments, remat ``full``;
+    ``sft``) on ``"mixed"`` batches of 4 x 512 tokens of a 4,096-token
+    language (``train_batch``); then the optimizer state is freed, the
+    SFT'd tree is DAQ-quantized against the base
+    (``QuantConfig(use_fused_kernel=True)``, storage mode: the sweep and
+    the quantizer launch) and served phase 6's 8 requests through the
+    engine.  Kernel counts are zeroed just before the quantize and read
+    after the serve.
+
+    Prints what ``sft`` prints, then quantize seconds, the real SFT delta's
+    global sign rate and cosine, serve tok/s, and the launch formulas of
+    the quantize and the serve at ``TRAIN_LAYERS`` layers.  Ends with
+    ``train_agreement``."""
+    import repro_torch.launch.steps as steps_mod
+    from repro_torch.configs import QuantConfig, TrainConfig, get_arch
+    from repro_torch.engine import Engine
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.kernels.scale_search.kernel import sweep_plan
+    from repro_torch.launch.train import default_language
+    from repro_torch.models import build_model
+    from repro_torch.quantize import quantize
+
+    cfg = dataclasses.replace(get_arch("glm4-9b"), n_layers=TRAIN_LAYERS)
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=2, total_steps=TRAIN_STEPS,
+                     remat="full")
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device=model.device).manual_seed(seed + 5))
+    base = clone_tree(params)
+    state = steps_mod.init_train_state(model, tc, None, params)
+    spec = default_language(cfg, tc.seed + 100)
+    B, S = TRAIN_BATCH
+    log(f"train phase: {cfg.name} {cfg.n_layers} layers at full width "
+        f"({cfg.param_count() / 1e9:.3f} B params), {TRAIN_STEPS} steps of {B} x {S} tokens "
+        f"(mixed corpus, LanguageSpec(vocab={spec.vocab})), remat full, AdamW fp32 master "
+        f"and moments; state {torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+    state, _ = sft(torch, model, tc, state, spec, "train phase")
 
     post = state["params"]
     del state
@@ -2464,6 +2577,173 @@ def train_phase(torch, seed: int, prompts) -> None:
     del qparams, engine
     torch.cuda.empty_cache()
     train_agreement(torch, seed)
+
+
+def moe_train_phase(torch, records: dict, seed: int) -> None:
+    """Phase 7n: Mixtral 8x22B at full width cut to ``MOE_TRAIN_LAYERS``
+    layer (its training state at 2 layers, ~90 GB, does not fit one card),
+    through the port's entry points: bf16 weights from a seeded generator
+    (the base, kept on the host during the SFT), SFT'd by ``sft`` (the
+    router's auxiliary loss in every step's loss, the backward through
+    routing), the optimizer state freed,
+    the SFT'd tree DAQ-quantized against the base
+    (``QuantConfig(use_fused_kernel=True)``, storage: the sweep and the
+    quantizer launch) and quantized by SmoothQuant and AWQ calibrated on the
+    card (``model=`` / ``spec=``: the training language; the expert stacks
+    record nothing and equalize at unit scales, as the reference's), the
+    five trees scored (``eval_scores``: 16 x 128 prompts of each corpus, a
+    whole-sequence forward each), and the DAQ tree serving 8 requests of
+    ``PROMPT`` tokens x ``GEN`` through ``Engine(slots=8, k_steps=8)``.
+    The counts are zeroed just before the SFT and read just after the serve;
+    the kernels' launches go into ``records``.
+
+    Asserted: what ``sft`` asserts; an auxiliary loss above 0 in every
+    step; the launches (2 sweeps and 1 quantizer a leaf-matrix of the DAQ
+    quantize, none by the equalized ones; the wgmma route 4L a prefill call
+    and 4L + 1 a scoring forward of the DAQ tree, none of the others; the
+    decode route 4L + 1 a decode step and 1 a prefill call; the CUDA-core
+    route none); every score in [0, 2]; the outputs' lengths and ranges;
+    no decode step dropping an assignment.  Ends with ``train_agreement``
+    on a small Mixtral-shaped model."""
+    import warnings
+
+    import repro_torch.launch.steps as steps_mod
+    from repro_torch.configs import QuantConfig, TrainConfig, get_arch
+    from repro_torch.core.policy import tree_map
+    from repro_torch.data import eval_scores
+    from repro_torch.engine import Engine
+    from repro_torch.kernels._lib import KERNELS
+    from repro_torch.kernels.scale_search.kernel import sweep_plan
+    from repro_torch.launch.train import default_language
+    from repro_torch.models import build_model
+    from repro_torch.quantize import quantize
+
+    cfg = dataclasses.replace(get_arch("mixtral-8x22b"), n_layers=MOE_TRAIN_LAYERS)
+    L = cfg.n_layers
+    tc = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=2, total_steps=TRAIN_STEPS,
+                     remat="full")
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=model.device).manual_seed(seed + 19)
+    params = model.init(g)
+    # the base waits on the host: beside 47 GB of state, an expert stack's
+    # AdamW temporaries (3.2 GB each in fp32) ran the card out of memory
+    base = tree_map(lambda t: t.to("cpu", copy=True), params)
+    state = steps_mod.init_train_state(model, tc, None, params)
+    spec = default_language(cfg, tc.seed + 100)
+    prompts = torch.randint(0, spec.vocab, (SLOTS, PROMPT), generator=g, device=model.device)
+    B, S = TRAIN_BATCH
+    log(f"moe train phase: {cfg.name} d_model={cfg.d_model} heads={cfg.n_heads}/"
+        f"{cfg.n_kv_heads} experts={cfg.n_experts} x d_ff {cfg.d_ff} top-{cfg.top_k} at "
+        f"capacity factor {cfg.capacity_factor}, window {cfg.sliding_window}, vocab "
+        f"{cfg.vocab_size}, layers={L} of 56 ({cfg.param_count() / 1e9:.3f} B params); "
+        f"{TRAIN_STEPS} steps of {B} x {S} tokens (mixed corpus, LanguageSpec(vocab="
+        f"{spec.vocab})), remat full, AdamW fp32 master and moments; state "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB on the card")
+
+    # ---- phase 7n's path: counts zeroed just before, read just after ----
+    for k in KERNELS:
+        k.launches = 0
+    drops: list = []
+    restore = routing_recorder(torch, drops)
+    try:
+        state, metrics = sft(torch, model, tc, state, spec, "moe train phase")
+    finally:
+        restore()
+    train_drops = (sum(t for t, _ in drops) * cfg.top_k,
+                   sum(t * cfg.top_k - int(k) for t, k in drops), len(drops))
+    post = state["params"]
+    del state
+    torch.cuda.empty_cache()
+    base = tree_map(lambda t: t.to(model.device), base)
+    trees, quant = {"base": base, "post": post}, {}
+    calibrated = {"model": model, "spec": spec}
+    for method, qcfg, kw in (("daq", QuantConfig(use_fused_kernel=True), {}),
+                             ("smoothquant", QuantConfig(), calibrated),
+                             ("awq", QuantConfig(), calibrated)):
+        torch.cuda.reset_peak_memory_stats()
+        before = {k.name: k.launches for k in KERNELS}
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tree, report = quantize(post, base, qcfg, mode="storage", method=method, **kw)
+        torch.cuda.synchronize()
+        quant[method] = (report, time.perf_counter() - t0,
+                         torch.cuda.max_memory_allocated() / 1e9,
+                         {k.name: k.launches - before[k.name] for k in KERNELS},
+                         [str(w.message) for w in caught])
+        trees[method] = tree
+    scores = {}
+    for name, tree in trees.items():
+        t0 = time.perf_counter()
+        scores[name] = (eval_scores(model, tree, spec), time.perf_counter() - t0)
+    qparams = trees.pop("daq")
+    del trees, post, base, tree
+    torch.cuda.empty_cache()
+    engine = Engine(model, qparams, slots=SLOTS, cache_len=PROMPT + GEN, k_steps=K_STEPS)
+    serve_drops: list = []
+    restore = routing_recorder(torch, serve_drops)
+    try:
+        t0 = time.perf_counter()
+        outputs, stats = engine.serve(list(prompts), gen_tokens=GEN, return_stats=True)
+        torch.cuda.synchronize()
+        serve_s = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = {k.name: k.launches for k in KERNELS}
+    # ---- end of phase 7n's path ----
+
+    log(f"moe train phase: {train_drops[1]} of {train_drops[0]} assignments dropped by "
+        f"capacity over the SFT's {train_drops[2]} routing calls (remat full routes each "
+        f"layer twice a step: the forward and the backward's recompute)")
+    for method, (report, secs, peak, made, caught) in quant.items():
+        gc, gd = report.global_chosen, report.global_default
+        log(f"moe train phase, {method}: {secs:.2f} s, peak {peak:.2f} GB, {leaf_layers(report)} "
+            f"leaf-matrices; sign rate {gc['sign_rate']:.6f} (AbsMax {gd['sign_rate']:.6f}), "
+            f"cosine {gc['cosine']:.6f} (AbsMax {gd['cosine']:.6f}), delta L2 "
+            f"{gc['delta_l2']:.4f}; launches {json.dumps(made)}; warnings {caught}")
+        if not all(math.isfinite(v) for v in (*gc.values(), *gd.values())):
+            raise AssertionError(f"moe train phase, {method}: non-finite metrics {gc} {gd}")
+    for name, (sc, secs) in scores.items():
+        log(f"moe train phase, scores of {name}: style {sc['style']:.4f}, general "
+            f"{sc['general']:.4f} (marker {sc['style_marker_acc']:.4f}, style bigram "
+            f"{sc['style_bigram_acc']:.4f}, base bigram {sc['general_acc']:.4f}) in "
+            f"{secs:.2f} s")
+        if not all(0.0 <= sc[k] <= 2.0 for k in ("style", "general")):
+            raise AssertionError(f"moe train phase: scores of {name} out of [0, 2]: {sc}")
+    dec = stats["counters"]["tokens"]
+    dropped = sum(t * cfg.top_k - int(k) for t, k in serve_drops if t <= SLOTS)
+    log(f"moe train phase, serve of the DAQ tree: {len(outputs)} requests of {PROMPT} prompt "
+        f"tokens x {GEN} in {serve_s:.2f} s ({SLOTS * GEN / serve_s:.1f} tok/s end to end; "
+        f"decode {dec / stats['decode_s']:.1f} tok/s, {stats['decode_s'] / stats['decode_steps'] * 1e3:.2f} "
+        f"ms a step); launches of the path {json.dumps(launches)}")
+    n = leaf_layers(quant["daq"][0])
+    qcfg = QuantConfig()
+    passes = len(sweep_plan(1 + qcfg.n_coarse)) + len(sweep_plan(1 + qcfg.n_fine))
+    serve = fp8_serve_launches(stats, L, per_layer=4)
+    want = {"scale_search": passes * n, "fp8_quant": n,
+            "fp8_matmul_wgmma": serve["fp8_matmul_wgmma"] + 2 * (4 * L + 1),
+            "fp8_matmul_decode": serve["fp8_matmul_decode"], "fp8_matmul": 0}
+    if n != 2 + (4 + 3 * cfg.n_experts) * L or launches != want or any(
+            any(quant[m][3].values()) for m in ("smoothquant", "awq")):
+        raise AssertionError(f"moe train phase: {n} leaf-matrices, launches {launches}, "
+                             f"expected {want} (the equalized quantizes launch none)")
+    if not all(m["aux_loss"] > 0 for m in metrics):
+        raise AssertionError(f"moe train phase: aux losses {[m['aux_loss'] for m in metrics]}")
+    for out in outputs:
+        if len(out) != GEN or not all(0 <= t < cfg.vocab_size for t in out):
+            raise AssertionError(f"moe train phase: bad output row {out[:8]}...")
+    if dropped:
+        raise AssertionError(f"moe train phase: a decode step dropped {dropped} assignments")
+    for name, k in launches.items():
+        records[name]["launches"] += k
+    del qparams, engine
+    torch.cuda.empty_cache()
+    train_agreement(torch, seed, dataclasses.replace(
+        get_arch("mixtral-8x22b"), n_layers=2, d_model=256, n_heads=2, n_kv_heads=1,
+        head_dim=128, d_ff=256, n_experts=8, top_k=2, vocab_size=1024, sliding_window=16,
+        dtype="float32"), label="moe train agreement")
 
 
 def study_phase(torch) -> None:
@@ -4288,6 +4568,9 @@ def main() -> int:
     t0 = time.perf_counter()
     swa_phase(torch, records, args.seed)
     log(f"swa phase passed in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    moe_train_phase(torch, records, args.seed)
+    log(f"moe train phase passed in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     quantize_breakdown(torch, args.seed)
     log(f"quantize breakdown took {time.perf_counter() - t0:.1f} s")

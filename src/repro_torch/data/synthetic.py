@@ -199,13 +199,17 @@ def scores_from_tokens(model, params, spec: LanguageSpec, base_tokens: torch.Ten
 @torch.no_grad()
 def _full_logits(model, params, batch: dict) -> torch.Tensor:
     """[B, S, V] float32 logits of a full-sequence forward with no cache
-    (small-scale evaluation and calibration; dense family only)."""
+    (small-scale evaluation and calibration): an MoE model's dense prefix,
+    then the stack, through ``run_stack_train``, as the reference's
+    ``_full_logits`` runs them, for every family the port runs
+    (``layer_plan`` refuses the others)."""
     from repro_torch.models.common import apply_norm, embed_tokens, lm_logits
-    from repro_torch.models.lm import run_stack_train
+    from repro_torch.models.lm import layer_plan, run_stack_train
     cfg = model.cfg
-    if cfg.family != "dense":
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet")
+    prefix_specs, n_prefix, specs, _ = layer_plan(cfg)
     x = embed_tokens(params["embed"], batch["tokens"])
-    x = run_stack_train(params["stack"]["L0"], x, cfg)
+    if n_prefix:
+        x, _ = run_stack_train(params["prefix"]["L0"], x, cfg, prefix_specs[0])
+    x, _ = run_stack_train(params["stack"]["L0"], x, cfg, specs[0])
     x = apply_norm(params["final_norm"], x, cfg.norm_eps)
     return lm_logits(params["embed"], x).float()

@@ -24,6 +24,8 @@ bfloat16 tree its first update starts from the random init's master
 Usage (CPU scale; ``--device cpu``, else the card):
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch glm4-9b --reduced \\
       --steps 50 --batch 8 --seq 128
+  PYTHONPATH=src python -m repro_torch.launch.train --device cpu --arch mixtral-8x22b \\
+      --reduced --steps 20 --batch 4 --seq 64   # MoE: the log adds the router's aux loss
 """
 from __future__ import annotations
 
@@ -102,7 +104,9 @@ def train_loop(model, tc: TrainConfig, *, batch_size: int, seq: int, steps: int,
                     print(f"step {t + 1:5d} loss={last_metrics['loss']:.4f} "
                           f"acc={last_metrics['accuracy']:.4f} "
                           f"lr={last_metrics['lr']:.2e} "
-                          f"gnorm={last_metrics['grad_norm']:.3f}", flush=True)
+                          f"gnorm={last_metrics['grad_norm']:.3f}"
+                          + (f" aux={last_metrics['aux_loss']:.5f}" if cfg.family == "moe"
+                             else ""), flush=True)
                 write_heartbeat(hb_path, t + 1)
                 if (t + 1) % save_every == 0:
                     ckpt.save(ckpt_dir, t + 1, state, keep_last=keep_last,

@@ -36,11 +36,11 @@ Mamba layer through ``mamba_prefill_chunk``), and ``verify_chunk_paged`` a
 speculative round's draft tokens (each row the decode step at its
 position, on the CPU bit for bit; a Mamba layer through
 ``mamba_verify_chunk``).  ``run_stack_train`` is the full-sequence forward
-with no cache: the one calibration walks
-(``data/synthetic.py::_full_logits``) without grad, and the one
-``Model.loss_fn`` trains through with grad, each layer under the
-reference's remat policies (``_remat``); it runs no MoE layer (MoE training
-is ROADMAP Queue A 5).
+with no cache, one group at a time: calibration and the scores walk it
+(``data/synthetic.py::_full_logits``) without grad, and ``Model.loss_fn``
+trains through it with grad, each layer under the reference's remat
+policies (``_remat``); an MoE layer there routes with the group's capacity
+and returns the router's auxiliary loss, which ``loss_fn`` adds.
 """
 from __future__ import annotations
 
@@ -395,15 +395,19 @@ def apply_layer_prefill(p: dict, x, cache: dict, cfg: ModelConfig, spec: LayerSp
 
 
 def apply_layer_train(p: dict, x, cfg: ModelConfig, spec: LayerSpec):
-    """Pre-norm residual layer over a whole sequence, no cache (the
-    reference's ``apply_layer_train`` for a dense or Mamba layer; its
-    auxiliary loss is the MoE router's, 0 here)."""
+    """Pre-norm residual layer over a whole sequence, no cache, as the
+    reference's ``apply_layer_train``: returns ``(x, aux)``, ``aux`` the MoE
+    router's auxiliary loss (routed with the group's capacity, not
+    ``full_capacity``), 0.0 for any other layer."""
     h = apply_norm(p["ln1"], x, cfg.norm_eps)
     if spec[0] == "mamba":
         x = x + SSM.mamba_train(p["mamba"], h, cfg)
     else:
         x = x + A.self_attn_train(p["attn"], h, cfg)
-    return _ffn(p, x, cfg, spec)
+    if spec[1] == "moe":
+        y, aux = MOE.apply_moe(p["moe"], apply_norm(p["ln2"], x, cfg.norm_eps), cfg)
+        return x + y, aux
+    return _ffn(p, x, cfg, spec), 0.0
 
 
 def _layers(stack: dict, n: int) -> list:
@@ -440,30 +444,31 @@ def _remat(fn, policy: str):
     return lambda *args: checkpoint(fn, *args, **kw)
 
 
-def run_stack_train(stack: dict, x, cfg: ModelConfig, remat: str = "full"):
-    """The stacked layers ``stack`` (``params["stack"]["L0"]``) applied in
-    order to ``x`` [B, S, D] over whole sequences, no cache, each layer's
-    ``qlinear.matmul``s in the reference's order.
+def run_stack_train(stack: dict, x, cfg: ModelConfig, spec: LayerSpec, remat: str = "full"):
+    """The stacked layers ``stack`` (a group's ``params[name]["L0"]``, each
+    layer of ``spec``) applied in order to ``x`` [B, S, D] over whole
+    sequences, no cache, each layer's ``qlinear.matmul``s in the
+    reference's order.  Returns ``(x, aux)``, ``aux`` the fp32 sum of the
+    layers' auxiliary losses in layer order (the reference's scan carry).
 
-    Without grad (calibration, ``data/synthetic.py::_full_logits``) each
-    layer reads views of the stacked leaves and ``remat`` is moot.  With
+    Without grad (calibration and scores, ``data/synthetic.py::_full_logits``)
+    each layer reads views of the stacked leaves and ``remat`` is moot.  With
     grad, each layer runs under ``remat`` (``_remat``) and the gradients
-    reach the stacked leaves in the reference's ``[n_layers, ...]``
-    layout; the forward's bits are the same either way."""
-    if cfg.family == "moe":
-        raise NotImplementedError("MoE training (the router's auxiliary loss, the backward "
-                                  "through routing) and the dense-prefix stack's "
-                                  "full-sequence forward are not ported yet (ROADMAP Queue A 5)")
+    reach the stacked leaves in the reference's ``[n_layers, ...]`` layout,
+    the expert stacks' ``[n, E, D, F]`` included; the forward's bits are
+    the same either way."""
     n = n_stacked(stack)
-    spec = layer_plan(cfg)[2][0]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not torch.is_grad_enabled():
         for i in range(n):
-            x = apply_layer_train(layer_view(stack, i), x, cfg, spec)
-        return x
+            x, a = apply_layer_train(layer_view(stack, i), x, cfg, spec)
+            aux = aux + a
+        return x, aux
     layer = _remat(apply_layer_train, remat)
     for lp in _layers(stack, n):
-        x = layer(lp, x, cfg, spec)
-    return x
+        x, a = layer(lp, x, cfg, spec)
+        aux = aux + a
+    return x, aux
 
 
 class Model:
@@ -473,7 +478,9 @@ class Model:
     ``groups`` lists each stacked subtree with its layer spec, the MoE
     family's dense prefix first; the paged forwards (``init_paged_cache``,
     ``decode_step_paged``, ``prefill_chunk_paged``, ``verify_chunk_paged``)
-    run every group.  ``loss_fn`` trains the dense and SSM families."""
+    run every group, and so do ``loss_fn`` (every family trains, the MoE
+    router's auxiliary loss added) and the whole-sequence forward of
+    ``data/synthetic.py::_full_logits``."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         prefix_specs, n_prefix, specs, n_periods = layer_plan(cfg)
@@ -497,17 +504,20 @@ class Model:
 
     def loss_fn(self, params: dict, batch: dict, remat: str = "full"):
         """Mean next-token loss of ``batch`` (``tokens``, ``labels`` [B, S];
-        labels < 0 ignored): embed -> stack (under ``remat``) -> final norm
-        -> ``chunked_xent``.  Returns ``(loss, {"loss", "aux_loss",
-        "accuracy", "n_tokens"})`` as 0-d fp32 tensors; ``aux_loss`` (the
-        MoE router's in the reference) is 0: the port trains no MoE layer
-        (``run_stack_train`` raises for the family, ROADMAP Queue A 5)."""
+        labels < 0 ignored) plus the MoE router's auxiliary loss: embed ->
+        each of ``groups`` in order (the dense prefix, then the stack; under
+        ``remat``) -> final norm -> ``chunked_xent``.  Returns ``(loss +
+        aux, {"loss", "aux_loss", "accuracy", "n_tokens"})`` as 0-d fp32
+        tensors, as the reference's ``loss_fn``; ``aux_loss`` is 0 for the
+        dense and SSM families."""
         cfg = self.cfg
         x = embed_tokens(params["embed"], batch["tokens"])
-        x = run_stack_train(params["stack"]["L0"], x, cfg, remat=remat)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for name, spec, _ in self.groups:
+            x, a = run_stack_train(params[name]["L0"], x, cfg, spec, remat=remat)
+            aux = aux + a
         x = apply_norm(params["final_norm"], x, cfg.norm_eps)
         loss, acc, n_tok = chunked_xent(params["embed"], x, batch["labels"])
-        aux = torch.zeros((), dtype=torch.float32, device=loss.device)
         return loss + aux, {"loss": loss, "aux_loss": aux, "accuracy": acc,
                             "n_tokens": n_tok}
 

@@ -162,13 +162,16 @@ class _EqualizeQuantizer(Quantizer):
         wp, wb, qcfg = ctx.w_post, ctx.w_base, ctx.qcfg
         if wp.ndim == 2:
             return self._prepare_2d(wp, wb, qcfg, ctx.name)
-        # stacked layers: each slice looks up its own stats by fingerprint;
-        # the codes land in one preallocated tensor, as in quantize/daq.py
+        # stacked layers (an expert stack [n, E, D, F] too): each slice looks
+        # up its own stats by fingerprint; the codes land in one
+        # preallocated tensor, as in quantize/daq.py
         lead = wp.shape[:-2]
         post2, base2 = wp.reshape(-1, *wp.shape[-2:]), wb.reshape(-1, *wb.shape[-2:])
         parts, w_q = [], None
         for t in range(post2.shape[0]):
-            r = self._prepare_2d(post2[t], base2[t], qcfg, f"{ctx.name}[{t}]")
+            # the reference's name of the slice: one [i] per leading axis
+            idx = "".join(f"[{int(i)}]" for i in torch.unravel_index(torch.tensor(t), lead))
+            r = self._prepare_2d(post2[t], base2[t], qcfg, ctx.name + idx)
             if w_q is None:
                 w_q = torch.empty(post2.shape, dtype=r.w_q.dtype, device=r.w_q.device)
             w_q[t] = r.w_q

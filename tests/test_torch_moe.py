@@ -25,7 +25,10 @@ Tolerances, and what sets them:
   routing replayed into its MoE layers (its own routing agreeing on at
   least 90 % of each call's tokens) and is held to the port's bf16 rule,
   2e-2 of the logit scale, its greedy tokens equal where the top-2 margin
-  exceeds that.  The engine's greedy tokens equal the reference engine's
+  exceeds that; ``Model.loss_fn`` there (the routing replayed) gives the
+  reference's loss within 1e-3 and its auxiliary loss within 2e-2 (the
+  port's own, on its own bf16 router inputs).  The engine's greedy tokens
+  equal the reference engine's
   up to each request's first step whose margin is within 2e-2.
 * Quantize of the reduced fp32 tree at blocks of 32: alphas, codes and
   scales bit-equal, the 4-D expert stacks included (at blocks of 32 every
@@ -299,8 +302,10 @@ def test_bf16_model_prefill_and_decode_match_reference(bf16, monkeypatch):
     queue positions behind it): the cache layout, logits to the bf16 rule,
     greedy tokens where the margin allows, and the port's own routing
     sending at least 90 % of each call's tokens to the reference's experts
-    (measured 93-100 %); the paged engine serves the prompts with the
-    contiguous engine's tokens, and training refuses the family."""
+    (measured 93-100 %); ``Model.loss_fn`` (the dense prefix, then the
+    stack) with the routing replayed: loss within 1e-3 and the router's
+    auxiliary loss within 2e-2 of the reference's; the paged engine serves
+    the prompts with the contiguous engine's tokens."""
     ref_model, rp, model, params = bf16
     cfg = model.cfg
     rec = _record_routing(monkeypatch, replay=True)
@@ -330,17 +335,25 @@ def test_bf16_model_prefill_and_decode_match_reference(bf16, monkeypatch):
     assert n_cmp >= n_tok // 2
     assert len(rec["agree"]) == 4 * 3 and not rec["ref"] and min(rec["agree"]) >= 0.9
     np.testing.assert_array_equal(pc["lengths"].numpy(), np.asarray(rc["lengths"]))
+    # training's forward (the dense prefix, then the stack, each MoE layer at
+    # its group's capacity) with the routing replayed: loss within 1e-3 and
+    # the router's auxiliary loss within 2e-2 of the reference's (the port's
+    # own, on its own bf16 router inputs)
+    batch = {"tokens": toks, "labels": np.roll(toks, -1, axis=1)}
+    rl, rm = jax.jit(lambda p, b: ref_model.loss_fn(p, b))(
+        rp, {k: jnp.asarray(v) for k, v in batch.items()})
+    pl, pm = model.loss_fn(params, {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert len(rec["agree"]) == 5 * 3 and not rec["ref"]
+    assert abs(float(pm["loss"]) - float(rm["loss"])) <= 1e-3 * float(rm["loss"])
+    assert 0 < float(pm["aux_loss"]) and \
+        abs(float(pm["aux_loss"]) - float(rm["aux_loss"])) <= 2e-2 * float(rm["aux_loss"])
+    assert float(pl) == float(pm["loss"] + pm["aux_loss"])
     monkeypatch.undo()      # the port's own routing from here on
     kw = dict(slots=B, cache_len=64, k_steps=2)
     prompts = list(toks)
     assert Engine(model, params, paged=True, block_size=16, check_invariants=True,
                   **kw).serve(prompts, gen_tokens=4) == Engine(model, params, **kw).serve(
                       prompts, gen_tokens=4)
-    for call in (lambda: model.loss_fn(params, {"tokens": torch.from_numpy(toks),
-                                                "labels": torch.from_numpy(toks)}),
-                 lambda: TL.run_stack_train(params["stack"]["L0"], None, cfg)):
-        with pytest.raises(NotImplementedError, match="Queue A 5"):
-            call()
 
 
 # ---------------------------------------------------------------------------
